@@ -1,0 +1,10 @@
+"""Model zoo of the port: the dense decoder family (see ROADMAP.md for the
+families still to come)."""
+from .config import ArchConfig, MoEConfig, SSMConfig, SHAPES, ShapeCell
+from .convert import from_jax_params
+from .transformer import (LM, forward_decode, forward_prefill, init_cache,
+                          init_lm, layer_kinds)
+
+__all__ = ["ArchConfig", "MoEConfig", "SSMConfig", "SHAPES", "ShapeCell",
+           "LM", "init_lm", "init_cache", "forward_prefill", "forward_decode",
+           "layer_kinds", "from_jax_params"]

@@ -1,0 +1,194 @@
+"""LM stack of the port: the dense family of ``repro.models.transformer``.
+
+The reference scans layer *groups* with ``lax.scan`` over stacked
+parameters; here each layer is its own ``Block`` module in one flat
+``ModuleList`` and a Python loop walks them.  Layer ``g * len(kinds) + i``
+is position ``i`` of group ``g`` in the reference (gemma3: five
+``attn_local`` layers, then one ``attn_global``).  Caches are a list of
+per-layer ``{"k", "v"}`` dicts, updated in place.
+
+Numerics follow the reference: f32 parameters cast at every matmul, a bf16
+residual stream from the embedding on, bf16 caches and f32 logits.
+
+Two entry points per model, as serving needs them:
+* ``forward_prefill``— full sequence, returns last-token logits + caches;
+* ``forward_decode`` — one token against the caches.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+from torch import nn
+
+from . import attention as A
+from .config import ArchConfig
+from .layers import MLP, Norm, normal_init
+
+# Families the port does not have yet, and where ROADMAP.md lists them.
+_UNPORTED = {
+    "moe": "ROADMAP.md §A, 'Remaining model families' (MoE)",
+    "ssm": "ROADMAP.md §A, 'RWKV6 serving' (B3 and the SSM family)",
+    "hybrid": "ROADMAP.md §A, 'Remaining model families' (hybrid)",
+    "encdec": "ROADMAP.md §A, 'Remaining model families' (encoder-decoder)",
+    "vlm": "ROADMAP.md §A, 'Remaining model families' (VLM)",
+}
+
+
+def require_dense(cfg: ArchConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"repro_torch ports the dense family only; {cfg.name} is "
+            f"{cfg.family!r}, which comes with "
+            f"{_UNPORTED.get(cfg.family, 'a later slice')}")
+
+
+# ----------------------------------------------------------------------
+# per-position layer kinds within one scan group of the reference
+# ----------------------------------------------------------------------
+def layer_kinds(cfg: ArchConfig) -> List[str]:
+    require_dense(cfg)
+    g = cfg.layer_group
+    if g > 1:  # local:global pattern (gemma3: 5 local then 1 global)
+        return ["attn_local"] * (g - 1) + ["attn_global"]
+    if cfg.sliding_window > 0 and cfg.global_every == 0:
+        return ["attn_local"]
+    return ["attn_global"]
+
+
+def stack_kinds(cfg: ArchConfig) -> List[str]:
+    """The kind of every layer, in execution order."""
+    kinds = layer_kinds(cfg)
+    n_groups = cfg.n_layers // len(kinds)
+    return kinds * n_groups
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ArchConfig, kind: str, generator, device,
+                 dtype=torch.float32) -> None:
+        super().__init__()
+        self.kind = kind
+        self.window = cfg.sliding_window if kind == "attn_local" else 0
+        self.ln1 = Norm(cfg, cfg.d_model, device, dtype)
+        self.attn = A.Attention(cfg, generator, device, dtype)
+        self.ln2 = Norm(cfg, cfg.d_model, device, dtype)
+        self.ffn = MLP(cfg, cfg.d_model, cfg.d_ff, generator, device, dtype)
+
+
+class LM(nn.Module):
+    """Embedding, a flat stack of blocks, final norm and LM head."""
+
+    def __init__(self, cfg: ArchConfig, device,
+                 generator: Optional[torch.Generator] = None,
+                 dtype=torch.float32) -> None:
+        super().__init__()
+        require_dense(cfg)
+        self.cfg = cfg
+        self.embed = normal_init((cfg.vocab, cfg.d_model), generator, device,
+                                 dtype=dtype)
+        self.final_norm = Norm(cfg, cfg.d_model, device, dtype)
+        self.lm_head = (None if cfg.tie_embeddings else
+                        normal_init((cfg.d_model, cfg.vocab), generator,
+                                    device, dtype=dtype))
+        self.blocks = nn.ModuleList(
+            Block(cfg, kind, generator, device, dtype)
+            for kind in stack_kinds(cfg))
+
+
+def init_lm(cfg: ArchConfig, generator: torch.Generator,
+            device="cuda", dtype=torch.float32) -> LM:
+    """Random weights with the reference's distributions, drawn from
+    ``generator`` (a ``torch.Generator`` on ``device``) — not the
+    reference's numbers; ``convert.from_jax_params`` carries those over."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("init_lm: device='cuda' but no CUDA device is "
+                           "available; pass device='cpu' for the host")
+    return LM(cfg, device, generator, dtype)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda",
+               dtype=torch.bfloat16) -> List[Dict[str, torch.Tensor]]:
+    # sliding-window layers only ever attend to the last `window` keys:
+    # their cache is a ring buffer of that size
+    caches = []
+    for kind in stack_kinds(cfg):
+        n = max_len
+        if kind == "attn_local" and cfg.sliding_window > 0:
+            n = min(max_len, cfg.sliding_window)
+        caches.append(A.init_kv_cache(cfg, batch, n, device, dtype))
+    return caches
+
+
+# ----------------------------------------------------------------------
+# block apply
+# ----------------------------------------------------------------------
+def apply_block_seq(cfg, blk: Block, x, positions, *, cache=None,
+                    use_flash: bool = False):
+    """Full-sequence mode.  Writes the block's keys/values into ``cache``
+    (in place) and returns the new residual stream."""
+    h = blk.ln1(x)
+    y, (k, v) = A.attend_full(cfg, blk.attn, h, positions, window=blk.window,
+                              use_flash=use_flash)
+    x = x + y
+    x = x + blk.ffn(blk.ln2(x))
+    if cache is not None:
+        S = k.shape[1]
+        W = cache["k"].shape[1]
+        for name, t in (("k", k), ("v", v)):
+            c = cache[name]
+            if W < S:
+                # ring buffer: token t lives at slot t % W
+                c.copy_(torch.roll(t[:, S - W:].to(c.dtype), S % W, dims=1))
+            else:
+                c[:, :S] = t.to(c.dtype)
+    return x
+
+
+def apply_block_decode(cfg, blk: Block, x, cache, pos: int):
+    """Single-token mode; updates ``cache`` in place."""
+    h = blk.ln1(x)
+    y, kv = A.attend_decode(cfg, blk.attn, h, cache, pos, window=blk.window)
+    cache.update(kv)
+    x = x + y
+    return x + blk.ffn(blk.ln2(x))
+
+
+# ----------------------------------------------------------------------
+# forward passes
+# ----------------------------------------------------------------------
+def _embed(cfg, params: LM, tokens):
+    # The reference casts the whole f32 table to bf16 and then gathers;
+    # gathering the rows first and casting them gives the same values.
+    return params.embed[tokens.long()].to(torch.bfloat16)
+
+
+def _logits(cfg, params: LM, x):
+    head = params.embed.T if cfg.tie_embeddings else params.lm_head
+    return (x @ head.to(x.dtype)).float()
+
+
+@torch.no_grad()
+def forward_prefill(cfg: ArchConfig, params: LM, batch, cache,
+                    use_flash: bool = False):
+    """Full-sequence prefill that fills the caches.
+    Returns (last-token logits (B,V) f32, cache)."""
+    tokens = batch["tokens"]
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    for blk, c in zip(params.blocks, cache):
+        x = apply_block_seq(cfg, blk, x, positions, cache=c,
+                            use_flash=use_flash)
+    x = params.final_norm(x[:, -1:, :])
+    return _logits(cfg, params, x)[:, 0], cache
+
+
+@torch.no_grad()
+def forward_decode(cfg: ArchConfig, params: LM, tokens, cache, pos: int):
+    """tokens: (B, 1); pos: index of the new token.
+    Returns (logits (B, V) f32, cache)."""
+    x = _embed(cfg, params, tokens)
+    for blk, c in zip(params.blocks, cache):
+        x = apply_block_decode(cfg, blk, x, c, pos)
+    x = params.final_norm(x)
+    return _logits(cfg, params, x)[:, 0], cache

@@ -1,0 +1,94 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+neither JAX nor the JAX package, and no entry point quietly runs on the CPU
+when it was not asked to."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_importing_every_port_module_loads_no_jax_and_no_repro():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        f"    {FORBIDDEN!r})\n"
+        "print(len(names), bad)\n"
+        "assert len(names) >= 25, names\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_source_has_no_jax_or_repro_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots = [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots = [(node.module or "").split(".")[0]]
+        else:
+            continue
+        assert not set(roots) & set(FORBIDDEN), \
+            f"{path}:{node.lineno} imports {roots}"
+
+
+def _tiny_cpu_model():
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm
+    cfg = get_config("qwen3_32b", reduced=True)
+    return cfg, init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    from repro_torch.core import GrScheduler, make_scheduler
+    from repro_torch.models import from_jax_params, init_lm
+    from repro_torch.runtime import ServingEngine
+
+    cfg, model = _tiny_cpu_model()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_scheduler()
+    with pytest.raises(RuntimeError, match="cuda"):
+        GrScheduler()
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServingEngine(cfg, model)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_lm(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="cuda"):
+        from_jax_params({"embed": np.zeros((1, 1), np.float32)}, cfg)
+    # The simulator needs no device; the CPU is there when asked for.
+    make_scheduler(simulate=True).close()
+    make_scheduler(device="cpu").close()
+    ServingEngine(cfg, model, device="cpu").close()
+
+
+def test_port_raises_for_what_it_has_not_ported():
+    from repro_torch.core import make_scheduler
+    with pytest.raises(NotImplementedError, match="analysis"):
+        make_scheduler(simulate=True, sanitize=True)
+    s = make_scheduler(simulate=True)
+    with pytest.raises(NotImplementedError, match="analysis"):
+        s.verify()
+    s.close()
