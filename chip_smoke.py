@@ -3,22 +3,29 @@
 
     python3 chip_smoke.py
 
-Three phases, each of which raises on failure (nothing is caught):
+Four phases, each of which raises on failure (nothing is caught):
 
 1. build: compiles every CUDA kernel of the port from ``src/repro_torch``
    with ``nvcc`` (one process per source, all at once) into ``build/``;
-2. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the main path gives it and a few more (ragged S, hd=256 with a
-   sliding window, softcap with MQA, float32), with its time, the plain
-   version's time, one PyTorch library call's time and the card's bound;
-3. serving: the main path, LM serving through the scheduler.  Full-width
+2. kernels: each kernel (flash attention, RMSNorm, WKV6) against its plain
+   PyTorch version on the card, at the shapes the serving phases give it
+   and a few more (ragged lengths, other head dims, T = 1, float32), with
+   its time, the plain version's time, one PyTorch library call's time
+   where one computes the same function, and the card's bound;
+3. qwen3 serving: LM serving through the scheduler.  Full-width
    ``qwen3_32b`` cut to 4 layers, random weights from a seeded generator,
    8 requests of 1024-token prompts in batches of 2 on CUDA-stream lanes.
-   Checks the tokens, the lanes and that every prefill attention went
-   through the hand-written kernel.
+   Checks the tokens, the lanes and that every prefill attention and every
+   RMSNorm went through the hand-written kernels;
+4. rwkv serving: the same requests served by ``rwkv6_1_6b`` at full width
+   and full depth (24 layers).  Checks the tokens, the lanes, that every
+   prefill recurrence went through the WKV6 kernel, and the prefill logits
+   against the plain recurrence after 2 to 24 layers, in float32 and bf16.
 
-``--profile`` adds two warm serving runs, the second under ``torch.profiler``,
-and a run under the serial policy.
+Each serving phase sets every kernel's launch count to 0 just before it
+serves and reads the counts just after.  ``--profile`` adds, to each
+serving phase, two warm runs, the second under ``torch.profiler``, and runs
+under the serial policy.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` JSON line
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -28,6 +35,7 @@ Imports neither ``jax`` nor the JAX package ``repro``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -37,10 +45,15 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core rate, HBM rate.
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core rate, float32
+# rate outside the tensor cores, HBM rate.
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}     # as tests/test_kernels.py
+# WKV6 in float32 sums 64-term products in another order than the plain
+# loop, over up to a thousand steps: 1e-4 absolute beside 2e-5 relative.
+WKV_ATOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
 # The kernel phase: (name, B, S, H, Hkv, hd, dtype, causal, window, softcap).
 # The first case is the shape the serving phase gives the kernel.
@@ -51,6 +64,62 @@ FLASH_CASES = [
     ("f32 window ragged", 1, 333, 4, 2, 128, "float32", True, 100, 0.0),
     ("f32 non-causal window", 2, 256, 4, 2, 64, "float32", False, 64, 20.0),
 ]
+# (name, B, T, H, hd, dtype of r, k, v); w, u and the state are float32.
+# The first case is the prefill shape of the rwkv serving phase.
+WKV_CASES = [
+    ("rwkv6_1_6b prefill", 2, 1024, 32, 64, "bfloat16"),
+    ("f32 ragged T", 1, 333, 4, 64, "float32"),
+    ("T=1 (one-token prefill)", 2, 1, 32, 64, "bfloat16"),
+    ("reduced hd16 f32 ragged", 2, 37, 4, 16, "float32"),
+]
+# (name, shape of x, dtype); scale is float32.  The first three are the
+# shapes of the qwen3 serving phase; the first is the row's timing.
+RMS_CASES = [
+    ("qwen3_32b prefill Norm", (2048, 5120), "bfloat16"),
+    ("qwen3_32b prefill q-norm", (131072, 128), "bfloat16"),
+    ("qwen3_32b decode Norm", (2, 5120), "bfloat16"),
+    ("f32 d=1001", (37, 1001), "float32"),
+]
+
+
+def kernel_ops() -> dict:
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.rmsnorm import ops as rmsnorm
+    from repro_torch.kernels.rwkv6 import ops as wkv6
+    return {"flash_attention": flash, "rmsnorm": rmsnorm, "wkv6": wkv6}
+
+
+def reset_launches() -> None:
+    for mod in kernel_ops().values():
+        mod.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: mod.launches for name, mod in kernel_ops().items()}
+
+
+def bound(flops: float, nbytes: float, peak_flops: float) -> dict:
+    """The least time for the work: operations at the peak rate of their
+    type or bytes at the HBM rate, whichever is larger."""
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_HBM_BYTES
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                flops=flops, bytes=nbytes, ops_ms=t_ops * 1e3,
+                bytes_ms=t_bytes * 1e3)
+
+
+def check_close(what: str, got, ref, rtol: float, atol: float) -> float:
+    """Max abs error of ``got`` against ``ref``; raises past the
+    tolerance or on a value that is not finite."""
+    import torch
+    err = (got.float() - ref.float()).abs()
+    bad = int((err > atol + rtol * ref.float().abs()).sum())
+    worst = float(err.max()) if err.numel() else 0.0
+    print(f"[kernels] {what}: max_abs_err={worst:.3e} (rtol {rtol}, atol "
+          f"{atol}), {bad} elements out of tolerance")
+    if bad or not torch.isfinite(got).all():
+        raise AssertionError(f"{what} disagrees with its plain version")
+    return worst
 
 
 def card_line() -> str:
@@ -60,15 +129,33 @@ def card_line() -> str:
         text=True).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
+def time_ms(fn, iters: int, warmup: int = 2, args=((),),
+            graph: bool = True) -> float:
+    """Mean time of ``fn(*args[i % len(args)])`` over ``iters`` calls, on
+    CUDA events.  With ``graph`` the calls are captured once in a CUDA
+    graph and the graph's replay is timed: the device time, free of the
+    host's cost of issuing each call (which bounds small kernels when
+    issued one by one).  Without it, the calls are issued eagerly.
+    Several argument sets larger than the 50 MB L2 cache together make
+    each call find its inputs in HBM, as in the model."""
     import torch
-    for _ in range(warmup):
-        fn()
+
+    def run():
+        for i in range(iters):
+            fn(*args[i % len(args)])
+    for i in range(warmup):
+        fn(*args[i % len(args)])
+    torch.cuda.synchronize()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, capture_error_mode="relaxed"):
+            run()
+        g.replay()
+        run = g.replay
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    run()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
@@ -98,7 +185,7 @@ def phase_build() -> None:
                 print(f"[build] {name}: {line.strip()}")
 
 
-def phase_kernels() -> dict:
+def phase_flash() -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
@@ -116,35 +203,28 @@ def phase_kernels() -> dict:
         got = ops.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         ref = attention_ref(q.float(), k.float(), v.float(), **kw)
-        err = (got.float() - ref).abs()
-        tol = TOL[dt]
-        bad = int((err > tol + tol * ref.abs()).sum())
-        worst = max(worst, float(err.max()))
-        print(f"[kernels] flash_attention {label}: B={B} S={S} H={H} "
-              f"Hkv={Hkv} hd={hd} {dt} causal={causal} window={window} "
-              f"softcap={softcap}: max_abs_err={float(err.max()):.3e} "
-              f"(tol {tol}), {bad} elements out of tolerance")
-        if bad or not torch.isfinite(got).all():
-            raise AssertionError(f"flash_attention disagrees with "
-                                 f"attention_ref on {label}")
+        worst = max(worst, check_close(
+            f"flash_attention {label}: B={B} S={S} H={H} Hkv={Hkv} hd={hd} "
+            f"{dt} causal={causal} window={window} softcap={softcap}", got,
+            ref, TOL[dt], TOL[dt]))
         if timing is None:   # the serving shape
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             kernel_ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw),
                                 iters=20)
+            eager_ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw),
+                               iters=20, graph=False)
             plain_ms = time_ms(lambda: attention_ref(q, k, v, **kw), iters=5)
             library_ms = time_ms(
                 lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)
             flops = 4 * B * H * hd * visible_pairs(S, causal, window)
             nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, got))
-            t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
-            timing = dict(ms=kernel_ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+            timing = dict(ms=kernel_ms, eager_ms=eager_ms, plain_ms=plain_ms,
                           library_ms=library_ms,
-                          bound_ms=max(t_ops, t_bytes) * 1e3,
-                          bound_by="operations" if t_ops >= t_bytes
-                          else "bytes", flops=flops, bytes=nbytes)
+                          **bound(flops, nbytes, PEAK_BF16_FLOPS))
             print(f"[kernels] flash_attention at the serving shape: "
-                  f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"kernel {kernel_ms:.4f} ms (issued eagerly "
+                  f"{eager_ms:.4f} ms), plain {plain_ms:.4f} ms, "
                   f"SDPA {library_ms:.4f} ms, bound {timing['bound_ms']:.4f} "
                   f"ms ({timing['bound_by']}; {flops:.4e} FLOP, "
                   f"{nbytes:.4e} B)")
@@ -152,6 +232,117 @@ def phase_kernels() -> dict:
                 source="src/repro_torch/kernels/flash_attention/csrc/"
                        "flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention/kernel.py:30",
+                max_abs_err=worst, **timing)
+
+
+def phase_wkv6() -> dict:
+    import torch
+    from repro_torch.kernels.rwkv6 import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    worst, timing = 0.0, None
+    for (label, B, T, H, hd, dt) in WKV_CASES:
+        dtype = getattr(torch, dt)
+        r, k, v = (randn(B, T, H, hd).mul(0.5).to(dtype) for _ in range(3))
+        w = torch.exp(-torch.exp(randn(B, T, H, hd) * 0.5))   # float32
+        u = randn(H, hd) * 0.3
+        s0 = randn(B, H, hd, hd) * 0.1                          # nonzero
+        y, sT = ops.wkv6(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        want_y, want_s = ops.wkv6_plain(r.float(), k.float(), v.float(), w,
+                                        u, s0)
+        what = f"wkv6 {label}: B={B} T={T} H={H} hd={hd} r/k/v {dt}, w f32"
+        worst = max(worst,
+                    check_close(what + " (y)", y, want_y, TOL[dt],
+                                WKV_ATOL[dt]),
+                    check_close(what + " (state)", sT, want_s, TOL["float32"],
+                                WKV_ATOL["float32"]))
+        if timing is not None:
+            continue
+        # The serving shape: state carry, time and bound.
+        h = T // 2
+        y1, s_mid = ops.wkv6(r[:, :h], k[:, :h], v[:, :h], w[:, :h], u, s0)
+        y2, s_end = ops.wkv6(r[:, h:], k[:, h:], v[:, h:], w[:, h:], u,
+                             s_mid)
+        if not (torch.equal(torch.cat([y1, y2], 1), y)
+                and torch.equal(s_end, sT)):
+            raise AssertionError("wkv6 over two halves with the state "
+                                 "carried differs from one call")
+        print(f"[kernels] wkv6 {label}: two calls split at t={h} with the "
+              f"state carried equal one call exactly")
+        kernel_ms = time_ms(lambda: ops.wkv6(r, k, v, w, u, s0), iters=20)
+        eager_ms = time_ms(lambda: ops.wkv6(r, k, v, w, u, s0), iters=20,
+                           graph=False)
+        plain_ms = time_ms(lambda: ops.wkv6_plain(r, k, v, w, u, s0),
+                           iters=2, warmup=1)
+        # The function needs 5 float32 operations per (i, j) of S, per
+        # token and head: r^T S (a multiply and an add), then w S + k v^T
+        # (two multiplies and an add); r (u * k) v is O(hd).  The kernel
+        # does 7, forming r (S + u k v^T) per element as the TPU kernel does.
+        flops = 5 * hd * hd * B * T * H
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (r, k, v, w, u, s0, y, sT))
+        timing = dict(ms=kernel_ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                      library_ms=None, **bound(flops, nbytes, PEAK_F32_FLOPS))
+        print(f"[kernels] wkv6 at the serving shape: kernel {kernel_ms:.4f} "
+              f"ms (issued eagerly {eager_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, library none (no PyTorch call "
+              f"computes WKV6); bytes {nbytes:.4e} B = "
+              f"{timing['bytes_ms']:.4f} ms at the HBM rate, "
+              f"{flops:.4e} float32 FLOP = {timing['ops_ms']:.4f} ms at the "
+              f"float32 rate (the kernel's own 7 hd^2 form: "
+              f"{flops * 7 / 5 / PEAK_F32_FLOPS * 1e3:.4f} ms); bound "
+              f"{timing['bound_ms']:.4f} ms ({timing['bound_by']})")
+    return dict(name="wkv6", route="cuda",
+                source="src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
+                replaces="src/repro/kernels/rwkv6/kernel.py:23",
+                max_abs_err=worst, **timing)
+
+
+def phase_rmsnorm() -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst, timing = 0.0, None
+    for i, (label, shape, dt) in enumerate(RMS_CASES):
+        dtype = getattr(torch, dt)
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        scale = torch.randn(shape[-1], generator=gen, device="cuda") * 0.1 + 1
+        got = ops.rmsnorm(x, scale)
+        torch.cuda.synchronize()
+        worst = max(worst, check_close(
+            f"rmsnorm {label}: x {shape} {dt}, scale f32", got,
+            rmsnorm_ref(x.float(), scale), TOL[dt], TOL[dt]))
+        if i >= 3:
+            continue
+        # Time the serving shapes, each call on inputs out of L2.
+        nbytes = 2 * x.numel() * x.element_size() + scale.numel() * 4
+        copies = [(x.clone(), scale)
+                  for _ in range(min(16, int(1e8 // nbytes) + 1))]
+        kernel_ms = time_ms(ops.rmsnorm, iters=50, args=copies)
+        eager_ms = time_ms(ops.rmsnorm, iters=50, args=copies, graph=False)
+        plain_ms = time_ms(rmsnorm_ref, iters=20, args=copies)
+        lib_args = [(c, (shape[-1],), scale.to(dtype), 1e-6)
+                    for c, _ in copies]
+        library_ms = time_ms(F.rms_norm, iters=50, args=lib_args)
+        row = dict(ms=kernel_ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                   library_ms=library_ms,
+                   **bound(4 * x.numel(), nbytes, PEAK_F32_FLOPS))
+        print(f"[kernels] rmsnorm {label}: kernel {kernel_ms:.4f} ms (issued "
+              f"eagerly {eager_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, F.rms_norm {library_ms:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {nbytes:.4e} B)")
+        timing = timing or row
+        del copies, lib_args
+    return dict(name="rmsnorm", route="cuda",
+                source="src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+                replaces="src/repro/kernels/rmsnorm/kernel.py:16",
                 max_abs_err=worst, **timing)
 
 
@@ -171,7 +362,7 @@ def device_busy_us(events) -> tuple:
     return busy, (spans[-1][1] - spans[0][0]) if spans else 0.0
 
 
-def profile_serving(eng, prompts, card: str) -> None:
+def profile_serving(eng, prompts, card: str, tag: str) -> None:
     """Two more flushes of the same requests on the warm engine: one timed,
     one under ``torch.profiler`` for the device busy share and the kernels
     that take the device time."""
@@ -183,7 +374,7 @@ def profile_serving(eng, prompts, card: str) -> None:
     eng.flush()
     eng.collect()
     torch.cuda.synchronize()
-    print(f"[profile] warm run: wall {time.perf_counter() - t0:.4f} s "
+    print(f"[profile {tag}] warm run: wall {time.perf_counter() - t0:.4f} s "
           f"({card})")
     # The same requests under the serial policy (GrCUDA's baseline: one
     # lane, each batch waited for before the next is issued), warm.
@@ -199,7 +390,7 @@ def profile_serving(eng, prompts, card: str) -> None:
         serial.flush()
         serial.collect()
         torch.cuda.synchronize()
-        print(f"[profile] serial policy, {rep} run: wall "
+        print(f"[profile {tag}] serial policy, {rep} run: wall "
               f"{time.perf_counter() - t0:.4f} s ({card})")
     serial.sched.close()
     with profile(activities=[ProfilerActivity.CPU,
@@ -212,23 +403,146 @@ def profile_serving(eng, prompts, card: str) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy, span = device_busy_us(prof.events())
-    print(f"[profile] warm run under the profiler: wall {wall:.4f} s, "
+    print(f"[profile {tag}] warm run under the profiler: wall {wall:.4f} s, "
           f"device busy {busy / 1e6:.4f} s over a {span / 1e6:.4f} s device "
           f"span, idle share of the wall {1 - busy / 1e6 / wall:.4f} ({card})")
     table = prof.key_averages().table(sort_by="self_cuda_time_total",
                                       row_limit=40)
     for line in table.splitlines():
-        print(f"[profile] {line}")
+        print(f"[profile {tag}] {line}")
 
 
-def phase_serving(card: str, profile: bool = False) -> int:
+def make_prompts(cfg, n_req: int, plen: int):
+    """Seeded random prompts; request 6 repeats request 1 in another
+    batch."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab, plen).astype(np.int32)
+               for _ in range(n_req)]
+    prompts[6] = prompts[1].copy()
+    return prompts
+
+
+def direct_call(cfg, model, toks, new: int, use_flash: bool = False):
+    """Greedy tokens of the port's prefill and decode called directly,
+    outside the scheduler, and the prefill logits."""
+    import torch
+    from repro_torch.models import init_cache
+    from repro_torch.runtime import make_decode_step, make_prefill_step
+    prefill = make_prefill_step(cfg, use_flash=use_flash)
+    decode = make_decode_step(cfg)
+    B, plen = toks.shape
+    logits, cache = prefill(model, {"tokens": toks},
+                            init_cache(cfg, B, plen + new, "cuda"))
+    nxt = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    out = [nxt]
+    for i in range(new - 1):
+        nxt, _, cache = decode(model, nxt, cache, plen + i)
+        out.append(nxt)
+    return torch.cat(out, 1).cpu().numpy(), logits
+
+
+def check_logits(tag: str, what: str, got, want,
+                 rtol: float = TOL["bfloat16"]) -> None:
+    """Max abs diff within ``rtol`` of the logit scale (by default the
+    bf16 tolerance 2e-2: at full width the logits reach several units,
+    where one bf16 step is 0.03, and the two paths round at different
+    places).  ``rtol=None`` prints the diff without checking it."""
+    import torch
+    lerr = float((got - want).abs().max())
+    lscale = float(want.abs().max())
+    held = "not checked" if rtol is None else f"tolerance {rtol}"
+    print(f"[{tag}] prefill logits, {what}: max abs diff {lerr:.3e} at "
+          f"logit scale {lscale:.3e} ({lerr / lscale:.3e} of it; {held})")
+    if not torch.isfinite(got).all() or (rtol is not None
+                                         and lerr > rtol * lscale):
+        raise AssertionError(f"prefill logits, {what}, disagree beyond "
+                             f"{rtol} of the logit scale")
+
+
+def logits_by_depth(cfg, model, toks, depths, dtype) -> dict:
+    """The prefill's last-token logits read out (final norm and head)
+    after each of ``depths`` blocks, with the residual stream in
+    ``dtype``."""
+    import torch
+    from repro_torch.models import init_cache
+    from repro_torch.models import transformer as T
+    B, plen = toks.shape
+    positions = torch.arange(plen, device=toks.device)[None, :]
+    out = {}
+    with torch.no_grad():
+        x = T._embed(cfg, model, toks).to(dtype)
+        for i, (blk, c) in enumerate(
+                zip(model.blocks, init_cache(cfg, B, plen, toks.device)), 1):
+            x = T.apply_block_seq(cfg, blk, x, positions, cache=c)
+            if i in depths:
+                out[i] = T._logits(cfg, model,
+                                   model.final_norm(x[:, -1:, :]))[:, 0]
+    return out
+
+
+def serve_and_check(tag: str, cfg, model, prompts, batch: int, new: int,
+                    direct, card: str, profile: bool) -> dict:
+    """Serve ``prompts`` through the scheduler with every kernel's launch
+    count set to 0 just before; returns the counts read just after.
+    Raises unless every request got ``new`` tokens, two lanes or more were
+    used, identical prompts got identical tokens and the first batch's
+    tokens equal ``direct``."""
+    import numpy as np
+    import torch
+    from repro_torch.runtime import ServingEngine
+    eng = ServingEngine(cfg, model, batch_size=batch, max_new_tokens=new)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                      # count the main path only
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p) for p in prompts]
+    eng.flush()
+    done = eng.collect()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    stats = eng.stats()
+    overlap = eng.sched.timeline.overlap_metrics()
+    peak = torch.cuda.max_memory_allocated()
+    if profile:
+        profile_serving(eng, prompts, card, tag)
+    eng.close()
+
+    n_req, plen = len(prompts), len(prompts[0])
+    print(f"[{tag}] {n_req} requests, {n_req // batch} batches: wall "
+          f"{wall:.4f} s, {n_req * new / wall:.2f} generated tok/s, "
+          f"{n_req * (plen + new) / wall:.2f} prompt+generated tok/s, "
+          f"lanes_created {stats['lanes_created']}, launches "
+          f"{json.dumps(launches)}, peak device memory "
+          f"{peak / 2**30:.3f} GiB ({card})")
+    print(f"[{tag}] overlap_metrics {json.dumps(overlap)} ({card})")
+    if len(done) != n_req or any(r.result is None or r.result.shape != (new,)
+                                 for r in reqs):
+        raise AssertionError(f"a request came back without a ({new},) "
+                             f"result")
+    if stats["lanes_created"] < 2:
+        raise AssertionError(f"only {stats['lanes_created']} lane(s)")
+    if not np.array_equal(reqs[1].result, reqs[6].result):
+        raise AssertionError("identical prompts gave different tokens")
+    got = np.stack([r.result for r in reqs[:batch]])
+    if not np.array_equal(got, direct):
+        raise AssertionError(f"served tokens {got} differ from the direct "
+                             f"prefill/decode call {direct}")
+    return launches
+
+
+def expect_launches(launches: dict, want: dict) -> None:
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{name} kernel launched {launches[name]} "
+                                 f"times on the main path, expected {n}")
+
+
+def phase_qwen3(card: str, profile: bool = False) -> dict:
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops
-    from repro_torch.models import init_cache, init_lm
-    from repro_torch.runtime import (ServingEngine, make_decode_step,
-                                     make_prefill_step)
+    from repro_torch.models import init_lm
 
     cfg = dataclasses.replace(get_config("qwen3_32b"), n_layers=4)
     batch, new, plen, n_req = 2, 16, 1024, 8
@@ -236,81 +550,82 @@ def phase_serving(card: str, profile: bool = False) -> int:
     model = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0),
                     device="cuda")
     torch.cuda.synchronize()
-    print(f"[serving] {cfg.name} at full width, {cfg.n_layers} layers: "
+    print(f"[qwen3] {cfg.name} at full width, {cfg.n_layers} layers: "
           f"{sum(p.numel() for p in model.parameters()):,} f32 parameters, "
           f"init {time.perf_counter() - t0:.2f} s")
-    rng = np.random.RandomState(0)
-    prompts = [rng.randint(0, cfg.vocab, plen).astype(np.int32)
-               for _ in range(n_req)]
-    prompts[6] = prompts[1].copy()        # same prompt in another batch
-
-    # Direct call of the port's prefill and decode, outside the scheduler,
-    # on the first batch (this also warms the card up).
-    prefill = make_prefill_step(cfg, use_flash=True)
-    decode = make_decode_step(cfg)
+    prompts = make_prompts(cfg, n_req, plen)
+    # The first batch called directly (this also warms the card up), and
+    # its prefill logits with the flash kernel against plain attention.
     toks = torch.from_numpy(np.stack(prompts[:batch])).cuda()
-    cache = init_cache(cfg, batch, plen + new, "cuda")
-    logits_flash, cache = prefill(model, {"tokens": toks}, cache)
-    nxt = torch.argmax(logits_flash, -1)[:, None].to(torch.int32)
-    direct = [nxt]
-    for i in range(new - 1):
-        nxt, _, cache = decode(model, nxt, cache, plen + i)
-        direct.append(nxt)
-    direct = torch.cat(direct, 1).cpu().numpy()
-    logits_plain, _ = make_prefill_step(cfg, use_flash=False)(
-        model, {"tokens": toks}, init_cache(cfg, batch, plen + new, "cuda"))
-    lerr = float((logits_flash - logits_plain).abs().max())
-    lscale = float(logits_plain.abs().max())
-    print(f"[serving] prefill logits, flash vs plain attention: max abs "
-          f"diff {lerr:.3e} at logit scale {lscale:.3e}")
-    # The bf16 tolerance 2e-2, relative to the logit scale: at full width
-    # the logits reach several units, where one bf16 step is 0.03 and the
-    # two paths round the attention output at different places.
-    if not lerr <= TOL["bfloat16"] * lscale:
-        raise AssertionError("prefill logits with use_flash=True and False "
-                             "disagree beyond the bf16 tolerance")
-    del cache, logits_plain
+    direct, logits_flash = direct_call(cfg, model, toks, new, use_flash=True)
+    _, logits_plain = direct_call(cfg, model, toks, 1, use_flash=False)
+    check_logits("qwen3", "flash vs plain attention", logits_flash,
+                 logits_plain)
+    del logits_plain
     torch.cuda.synchronize()
 
-    eng = ServingEngine(cfg, model, batch_size=batch, max_new_tokens=new)
-    torch.cuda.reset_peak_memory_stats()
-    ops.launches = 0                      # count the main path only
-    t0 = time.perf_counter()
-    reqs = [eng.submit(p) for p in prompts]
-    eng.flush()
-    done = eng.collect()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = ops.launches
-    stats = eng.stats()
-    overlap = eng.sched.timeline.overlap_metrics()
-    peak = torch.cuda.max_memory_allocated()
-    if profile:
-        profile_serving(eng, prompts, card)
-    eng.close()
-
+    launches = serve_and_check("qwen3", cfg, model, prompts, batch, new,
+                               direct, card, profile)
     n_batches = n_req // batch
-    print(f"[serving] {n_req} requests, {n_batches} batches: wall "
-          f"{wall:.4f} s, {n_req * new / wall:.2f} generated tok/s, "
-          f"{n_req * (plen + new) / wall:.2f} prompt+generated tok/s, "
-          f"lanes_created {stats['lanes_created']}, flash launches "
-          f"{launches}, peak device memory {peak / 2**30:.3f} GiB "
-          f"({card})")
-    print(f"[serving] overlap_metrics {json.dumps(overlap)} ({card})")
-    if len(done) != n_req or any(r.result is None or r.result.shape != (new,)
-                                 for r in reqs):
-        raise AssertionError("a request came back without a (16,) result")
-    if stats["lanes_created"] < 2:
-        raise AssertionError(f"only {stats['lanes_created']} lane(s)")
-    if launches != cfg.n_layers * n_batches:
-        raise AssertionError(f"flash kernel launched {launches} times, "
-                             f"expected {cfg.n_layers * n_batches}")
-    if not np.array_equal(reqs[1].result, reqs[6].result):
-        raise AssertionError("identical prompts gave different tokens")
-    got = np.stack([r.result for r in reqs[:batch]])
-    if not np.array_equal(got, direct):
-        raise AssertionError(f"served tokens {got} differ from the direct "
-                             f"prefill/decode call {direct}")
+    # Per forward call (the prefill and each of new - 1 decode steps):
+    # ln1, ln2, q-norm and k-norm in every layer, and the final norm.
+    expect_launches(launches, {
+        "flash_attention": cfg.n_layers * n_batches,
+        "rmsnorm": (4 * cfg.n_layers + 1) * new * n_batches,
+        "wkv6": 0})
+    return launches
+
+
+def phase_rwkv(card: str, profile: bool = False) -> dict:
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rwkv6 import ops
+    from repro_torch.models import init_lm
+    from repro_torch.models import rwkv as R
+
+    cfg = get_config("rwkv6_1_6b")            # full width and depth
+    batch, new, plen, n_req = 2, 16, 1024, 8
+    t0 = time.perf_counter()
+    model = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda")
+    torch.cuda.synchronize()
+    print(f"[rwkv] {cfg.name} at full width, {cfg.n_layers} layers: "
+          f"{sum(p.numel() for p in model.parameters()):,} f32 parameters, "
+          f"init {time.perf_counter() - t0:.2f} s")
+    prompts = make_prompts(cfg, n_req, plen)
+    toks = torch.from_numpy(np.stack(prompts[:batch])).cuda()
+    direct, _ = direct_call(cfg, model, toks, new)
+    # The served model's prefill with the WKV6 kernel against the plain
+    # recurrence, read out after 2, 4, 8, 16 and 24 layers.  With float32
+    # activations only the kernel's float32 sums in another order differ;
+    # with random weights each layer amplifies that (on an H100, 2e-6 of
+    # the logit scale after 2 layers, 9e-5 after 24), so 1e-3 is held at
+    # every depth, twenty times under the bf16 tolerance.  With the served
+    # bf16 activations the two paths also round y to bf16 apart in a few
+    # elements, which depth amplifies alike (0.8% after 2 layers, 15% after
+    # 24): the bf16 tolerance is held at 2 layers and the rest printed.
+    depths = (2, 4, 8, 16, cfg.n_layers)
+    for dtype, rtol, held in ((torch.float32, 1e-3, depths),
+                              (torch.bfloat16, TOL["bfloat16"], depths[:1])):
+        got = logits_by_depth(cfg, model, toks, depths, dtype)
+        with mock.patch.object(R, "wkv6", ops.wkv6_plain):
+            want = logits_by_depth(cfg, model, toks, depths, dtype)
+        for n in depths:
+            check_logits("rwkv", f"WKV6 kernel vs plain recurrence, {n} "
+                         f"layers, {str(dtype)[6:]} activations", got[n],
+                         want[n], rtol if n in held else None)
+        del got, want
+    torch.cuda.synchronize()
+
+    launches = serve_and_check("rwkv", cfg, model, prompts, batch, new,
+                               direct, card, profile)
+    # One recurrence per layer in each batch's prefill; decode is plain,
+    # and the family has no attention and layernorm only.
+    expect_launches(launches, {"wkv6": cfg.n_layers * n_req // batch,
+                               "flash_attention": 0, "rmsnorm": 0})
     return launches
 
 
@@ -330,12 +645,20 @@ def main() -> int:
           f"{sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    profile = "--profile" in sys.argv
     t0 = time.perf_counter()
     phase_build()
-    flash = phase_kernels()
-    flash["launches"] = phase_serving(card, profile="--profile" in sys.argv)
+    rows = [phase_flash(), phase_rmsnorm(), phase_wkv6()]
+    launches = phase_qwen3(card, profile)
+    # The qwen3 engine's reference cycles hold its weights until collected.
+    gc.collect()
+    torch.cuda.empty_cache()
+    rwkv = phase_rwkv(card, profile)
+    for row in rows:
+        row["launches"] = (rwkv if row["name"] == "wkv6" else launches)[
+            row["name"]]
     print(f"[done] {time.perf_counter() - t0:.2f} s")
-    print(json.dumps({"kernels": [flash]}))
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,6 +28,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Every kernel source of the port, by library name.
 SOURCES: Dict[str, Path] = {
     "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
+    "rmsnorm": _PKG / "rmsnorm" / "csrc" / "rmsnorm.cu",
+    "wkv6": _PKG / "rwkv6" / "csrc" / "wkv6.cu",
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,85 @@
+"""Public wrapper of the RMSNorm kernel, for any leading shape, as
+``repro.kernels.rmsnorm.ops.rmsnorm``.
+
+A CUDA tensor goes to the hand-written Hopper kernel (``csrc/rmsnorm.cu``),
+launched on the current stream.  A CPU tensor goes to the plain PyTorch
+version (``ref.rmsnorm_ref``).  There is no other path: a CUDA input the
+kernel does not take raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from ..build import load
+from .ref import rmsnorm_ref
+
+# Launches of the CUDA kernel since the count was last set to 0.  The CPU
+# path never counts.
+launches = 0
+_count_lock = threading.Lock()
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = load("rmsnorm")
+        lib.rmsnorm_fwd.restype = ctypes.c_int
+        lib.rmsnorm_fwd.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
+        lib.rmsnorm_error_string.restype = ctypes.c_char_p
+        lib.rmsnorm_error_string.argtypes = [ctypes.c_int]
+        _lib = lib
+    return _lib
+
+
+def rmsnorm_cuda(x, scale, eps: float = 1e-6) -> torch.Tensor:
+    """Launch the Hopper kernel on CUDA tensors (no CPU path)."""
+    global launches
+    if x.device.type != "cuda" or scale.device != x.device:
+        raise ValueError("rmsnorm_cuda: x and scale must lie on one CUDA "
+                         "device")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"rmsnorm: the CUDA kernel takes float32 or bfloat16 "
+                        f"x, got {x.dtype}")
+    d = x.shape[-1]
+    if scale.dtype != torch.float32 or tuple(scale.shape) != (d,):
+        raise TypeError(f"rmsnorm: the CUDA kernel takes a float32 scale of "
+                        f"shape ({d},), got {scale.dtype} "
+                        f"{tuple(scale.shape)}")
+    x2 = x.reshape(-1, d)
+    if x2.stride(1) != 1:
+        raise ValueError("rmsnorm: the last dim must be contiguous")
+    scale = scale.contiguous()
+    N = x2.shape[0]
+    y = torch.empty((N, d), dtype=x.dtype, device=x.device)
+    if N == 0 or d == 0:
+        return y.reshape(x.shape)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.rmsnorm_fwd(x2.data_ptr(), y.data_ptr(), scale.data_ptr(),
+                             _DTYPE_CODES[x.dtype], N, d, x2.stride(0),
+                             y.stride(0), float(eps), stream)
+    if rc != 0:
+        raise RuntimeError("rmsnorm kernel launch failed: "
+                           + lib.rmsnorm_error_string(rc).decode())
+    with _count_lock:
+        launches += 1
+    return y.reshape(x.shape)
+
+
+def rmsnorm(x, scale, eps: float = 1e-6) -> torch.Tensor:
+    """x: (..., d); scale: (d,) -> x's shape and dtype.
+
+    The CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    if x.device.type == "cpu":
+        return rmsnorm_ref(x, scale, eps)
+    return rmsnorm_cuda(x, scale, eps)

@@ -1,0 +1,127 @@
+"""Public wrapper of the WKV6 kernel, in the (B, T, H, hd) layout of
+``repro.kernels.rwkv6.ops.wkv6``.
+
+A CUDA tensor goes to the hand-written Hopper kernel (``csrc/wkv6.cu``),
+launched on the current stream; it reads the (B, T, H, hd) layout through
+strides, so no head-major copy is made.  A CPU tensor goes to the plain
+PyTorch version (``ref.wkv6_ref``).  There is no other path: a CUDA input
+the kernel does not take raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from ..build import load
+from .ref import wkv6_ref
+
+# Launches of the CUDA kernel since the count was last set to 0.  The CPU
+# path never counts.
+launches = 0
+_count_lock = threading.Lock()
+
+SUPPORTED_HEAD_DIMS = (16, 64, 128)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = load("wkv6")
+        lib.wkv6_fwd.restype = ctypes.c_int
+        lib.wkv6_fwd.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+            + [ctypes.c_longlong] * 15 + [ctypes.c_void_p])
+        lib.wkv6_error_string.restype = ctypes.c_char_p
+        lib.wkv6_error_string.argtypes = [ctypes.c_int]
+        _lib = lib
+    return _lib
+
+
+def _check(r, k, v, w, u, s0) -> None:
+    if r.dim() != 4:
+        raise ValueError("wkv6: r, k, v, w must be (B, T, H, hd)")
+    B, _, H, hd = r.shape
+    for name, t in (("k", k), ("v", v), ("w", w)):
+        if t.shape != r.shape:
+            raise ValueError(f"wkv6: {name} {tuple(t.shape)} does not match "
+                             f"r {tuple(r.shape)}")
+    if tuple(u.shape) != (H, hd):
+        raise ValueError(f"wkv6: u must be (H, hd) = ({H}, {hd}), got "
+                         f"{tuple(u.shape)}")
+    if tuple(s0.shape) != (B, H, hd, hd):
+        raise ValueError(f"wkv6: s0 must be (B, H, hd, hd), got "
+                         f"{tuple(s0.shape)}")
+
+
+def wkv6_plain(r, k, v, w, u, s0):
+    """The plain version in the (B, T, H, hd) layout, on any device."""
+    _check(r, k, v, w, u, s0)
+    B, T, H, hd = r.shape
+    def flat(x):
+        return x.transpose(1, 2).reshape(B * H, T, hd)
+    y, sT = wkv6_ref(flat(r), flat(k), flat(v), flat(w),
+                     u[None].expand(B, H, hd).reshape(B * H, hd),
+                     s0.reshape(B * H, hd, hd))
+    y = y.reshape(B, H, T, hd).transpose(1, 2).reshape(B, T, H * hd)
+    return y, sT.reshape(B, H, hd, hd)
+
+
+def wkv6_cuda(r, k, v, w, u, s0):
+    """Launch the Hopper kernel on CUDA tensors (no CPU path)."""
+    global launches
+    _check(r, k, v, w, u, s0)
+    if r.device.type != "cuda" or any(t.device != r.device
+                                      for t in (k, v, w, u, s0)):
+        raise ValueError("wkv6_cuda: every tensor must lie on one CUDA "
+                         "device")
+    if not (r.dtype == k.dtype == v.dtype) or r.dtype not in _DTYPE_CODES:
+        raise TypeError(f"wkv6: the CUDA kernel takes r, k, v of one type, "
+                        f"float32 or bfloat16; got {r.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if w.dtype != torch.float32 or s0.dtype != torch.float32:
+        raise TypeError(f"wkv6: the decay w and the state s0 must be "
+                        f"float32, got {w.dtype} and {s0.dtype}")
+    B, T, H, hd = r.shape
+    if hd not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"wkv6: the CUDA kernel takes hd in "
+                         f"{SUPPORTED_HEAD_DIMS}, got {hd}")
+    if min(t.stride(3) for t in (r, k, v, w)) != 1:
+        raise ValueError("wkv6: the head dim must be contiguous")
+    if B * H == 0:
+        raise ValueError("wkv6: empty batch or head count")
+    u = u.float().contiguous()
+    s0 = s0.contiguous()
+    y = torch.empty((B, T, H, hd), dtype=r.dtype, device=r.device)
+    sT = torch.empty_like(s0)
+    lib = _library()
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        rc = lib.wkv6_fwd(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), s0.data_ptr(), y.data_ptr(), sT.data_ptr(),
+            _DTYPE_CODES[r.dtype], B, T, H, hd,
+            r.stride(0), r.stride(1), r.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            w.stride(0), w.stride(1), w.stride(2),
+            y.stride(0), y.stride(1), y.stride(2), stream)
+    if rc != 0:
+        raise RuntimeError("wkv6 kernel launch failed: "
+                           + lib.wkv6_error_string(rc).decode())
+    with _count_lock:
+        launches += 1
+    return y.reshape(B, T, H * hd), sT
+
+
+def wkv6(r, k, v, w, u, s0):
+    """r/k/v/w: (B, T, H, hd); u: (H, hd); s0: (B, H, hd, hd) float32.
+    Returns (y (B, T, H*hd) in r's dtype, s_final (B, H, hd, hd) float32).
+
+    The CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    if r.device.type == "cpu":
+        return wkv6_plain(r, k, v, w, u, s0)
+    return wkv6_cuda(r, k, v, w, u, s0)

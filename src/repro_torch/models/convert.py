@@ -39,12 +39,9 @@ def from_jax_params(np_params, cfg: ArchConfig, device="cuda") -> LM:
     kinds = layer_kinds(cfg)
     for layer, blk in enumerate(model.blocks):
         g, i = divmod(layer, len(kinds))
-        src = np_params["blocks"][i]
-        for norm in ("ln1", "ln2"):
-            for name, value in src[norm].items():
-                _fill(getattr(getattr(blk, norm), name), value[g])
-        for name, value in src["attn"].items():
-            _fill(getattr(blk.attn, name), value[g])
-        for name, value in src["ffn"].items():
-            _fill(getattr(blk.ffn, name), value[g])
+        # Each group of a block's parameters (ln1, ln2 and attn + ffn, or
+        # rwkv + cmix) is the port module of the same name.
+        for group, params in np_params["blocks"][i].items():
+            for name, value in params.items():
+                _fill(getattr(getattr(blk, group), name), value[g])
     return model

@@ -3,6 +3,10 @@
 Parameters are stored in f32 in the reference's (in, out) layout and cast
 to the activation dtype at every matmul (``x @ w.to(x.dtype)``), as
 ``repro.models.layers`` does with ``.astype(x.dtype)``.
+
+RMSNorm (``Norm``'s rmsnorm branch and the qk-norm ``rms_norm_heads``) goes
+through ``kernels.rmsnorm.ops.rmsnorm``: the hand-written kernel on a CUDA
+tensor, its plain version (``ref.rmsnorm_ref``) on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -12,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..kernels.rmsnorm.ops import rmsnorm
 
 
 def normal_init(shape, generator: Optional[torch.Generator], device,
@@ -39,23 +45,19 @@ class Norm(nn.Module):
             self.bias = _param(torch.zeros(d, device=device, dtype=dtype))
 
     def forward(self, x, eps: float = 1e-6):
+        if self.kind == "rmsnorm":
+            return rmsnorm(x, self.scale, eps)
         xf = x.float()
-        if self.kind == "layernorm":
-            mu = xf.mean(-1, keepdim=True)
-            var = xf.var(-1, keepdim=True, unbiased=False)
-            y = (xf - mu) * torch.rsqrt(var + eps)
-            y = y * self.scale.float() + self.bias.float()
-        else:  # rmsnorm
-            ms = (xf * xf).mean(-1, keepdim=True)
-            y = xf * torch.rsqrt(ms + eps) * self.scale.float()
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, unbiased=False)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * self.scale.float() + self.bias.float()
         return y.to(x.dtype)
 
 
 def rms_norm_heads(x, scale, eps: float = 1e-6):
     """qk-norm: RMSNorm over the head dimension (qwen3)."""
-    xf = x.float()
-    ms = (xf * xf).mean(-1, keepdim=True)
-    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+    return rmsnorm(x, scale, eps)
 
 
 # ------------------------------------------------------------------ rope

@@ -1,11 +1,15 @@
-"""LM stack of the port: the dense family of ``repro.models.transformer``.
+"""LM stack of the port: the dense and ssm (RWKV6) families of
+``repro.models.transformer``.
 
 The reference scans layer *groups* with ``lax.scan`` over stacked
 parameters; here each layer is its own ``Block`` module in one flat
 ``ModuleList`` and a Python loop walks them.  Layer ``g * len(kinds) + i``
 is position ``i`` of group ``g`` in the reference (gemma3: five
 ``attn_local`` layers, then one ``attn_global``).  Caches are a list of
-per-layer ``{"k", "v"}`` dicts, updated in place.
+per-layer dicts, updated in place where the reference returns new ones:
+``{"k", "v"}`` bf16 tensors written in place for attention layers, and
+``{"shift", "wkv", "cmix_shift"}`` float32 states for rwkv layers, whose
+entries are replaced by the new states.
 
 Numerics follow the reference: f32 parameters cast at every matmul, a bf16
 residual stream from the embedding on, bf16 caches and f32 logits.
@@ -22,24 +26,25 @@ import torch
 from torch import nn
 
 from . import attention as A
+from . import rwkv as R
 from .config import ArchConfig
 from .layers import MLP, Norm, normal_init
 
+PORTED_FAMILIES = ("dense", "ssm")
 # Families the port does not have yet, and where ROADMAP.md lists them.
 _UNPORTED = {
     "moe": "ROADMAP.md §A, 'Remaining model families' (MoE)",
-    "ssm": "ROADMAP.md §A, 'RWKV6 serving' (B3 and the SSM family)",
     "hybrid": "ROADMAP.md §A, 'Remaining model families' (hybrid)",
     "encdec": "ROADMAP.md §A, 'Remaining model families' (encoder-decoder)",
     "vlm": "ROADMAP.md §A, 'Remaining model families' (VLM)",
 }
 
 
-def require_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+def require_ported(cfg: ArchConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"repro_torch ports the dense family only; {cfg.name} is "
-            f"{cfg.family!r}, which comes with "
+            f"repro_torch ports the {' and '.join(PORTED_FAMILIES)} "
+            f"families only; {cfg.name} is {cfg.family!r}, which comes with "
             f"{_UNPORTED.get(cfg.family, 'a later slice')}")
 
 
@@ -47,7 +52,9 @@ def require_dense(cfg: ArchConfig) -> None:
 # per-position layer kinds within one scan group of the reference
 # ----------------------------------------------------------------------
 def layer_kinds(cfg: ArchConfig) -> List[str]:
-    require_dense(cfg)
+    require_ported(cfg)
+    if cfg.family == "ssm":
+        return ["rwkv"]
     g = cfg.layer_group
     if g > 1:  # local:global pattern (gemma3: 5 local then 1 global)
         return ["attn_local"] * (g - 1) + ["attn_global"]
@@ -70,6 +77,11 @@ class Block(nn.Module):
         self.kind = kind
         self.window = cfg.sliding_window if kind == "attn_local" else 0
         self.ln1 = Norm(cfg, cfg.d_model, device, dtype)
+        if kind == "rwkv":
+            self.rwkv = R.TimeMix(cfg, generator, device, dtype)
+            self.ln2 = Norm(cfg, cfg.d_model, device, dtype)
+            self.cmix = R.ChannelMix(cfg, generator, device, dtype)
+            return
         self.attn = A.Attention(cfg, generator, device, dtype)
         self.ln2 = Norm(cfg, cfg.d_model, device, dtype)
         self.ffn = MLP(cfg, cfg.d_model, cfg.d_ff, generator, device, dtype)
@@ -82,7 +94,7 @@ class LM(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  dtype=torch.float32) -> None:
         super().__init__()
-        require_dense(cfg)
+        require_ported(cfg)
         self.cfg = cfg
         self.embed = normal_init((cfg.vocab, cfg.d_model), generator, device,
                                  dtype=dtype)
@@ -109,10 +121,18 @@ def init_lm(cfg: ArchConfig, generator: torch.Generator,
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda",
                dtype=torch.bfloat16) -> List[Dict[str, torch.Tensor]]:
+    """Per-layer caches: bf16 (``dtype``) keys and values for attention
+    layers, float32 states for rwkv layers (which ignore ``max_len``)."""
     # sliding-window layers only ever attend to the last `window` keys:
     # their cache is a ring buffer of that size
     caches = []
     for kind in stack_kinds(cfg):
+        if kind == "rwkv":
+            st = R.init_rwkv_state(cfg, batch, device)
+            st["cmix_shift"] = torch.zeros((batch, cfg.d_model),
+                                           dtype=torch.float32, device=device)
+            caches.append(st)
+            continue
         n = max_len
         if kind == "attn_local" and cfg.sliding_window > 0:
             n = min(max_len, cfg.sliding_window)
@@ -123,10 +143,24 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda",
 # ----------------------------------------------------------------------
 # block apply
 # ----------------------------------------------------------------------
+def _apply_rwkv_block(cfg, blk: Block, x, state, seq: bool):
+    h = blk.ln1(x)
+    mixer = R.apply_rwkv_seq if seq else R.apply_rwkv_step
+    y, _ = mixer(cfg, blk.rwkv, h, state)
+    x = x + y
+    y2, cshift = R.apply_channel_mix(cfg, blk.cmix, blk.ln2(x),
+                                     state["cmix_shift"])
+    state["cmix_shift"] = cshift.float()
+    return x + y2
+
+
 def apply_block_seq(cfg, blk: Block, x, positions, *, cache=None,
                     use_flash: bool = False):
-    """Full-sequence mode.  Writes the block's keys/values into ``cache``
-    (in place) and returns the new residual stream."""
+    """Full-sequence mode.  Writes the block's keys/values (attention) or
+    new states (rwkv) into ``cache`` in place and returns the new residual
+    stream."""
+    if blk.kind == "rwkv":
+        return _apply_rwkv_block(cfg, blk, x, cache, seq=True)
     h = blk.ln1(x)
     y, (k, v) = A.attend_full(cfg, blk.attn, h, positions, window=blk.window,
                               use_flash=use_flash)
@@ -147,6 +181,8 @@ def apply_block_seq(cfg, blk: Block, x, positions, *, cache=None,
 
 def apply_block_decode(cfg, blk: Block, x, cache, pos: int):
     """Single-token mode; updates ``cache`` in place."""
+    if blk.kind == "rwkv":
+        return _apply_rwkv_block(cfg, blk, x, cache, seq=False)
     h = blk.ln1(x)
     y, kv = A.attend_decode(cfg, blk.attn, h, cache, pos, window=blk.window)
     cache.update(kv)

@@ -22,8 +22,12 @@ instead of issuing fragments, flushing them once the oldest member ages out
 the scheduler's submission pipeline lock.
 
 On ``device="cuda"`` (the default) each batch runs on its lane's CUDA
-stream and prefill goes through the hand-written flash-attention kernel
-(``use_flash`` defaults to True there, False on the CPU).
+stream and prefill goes through the hand-written kernels: flash attention
+(``use_flash`` defaults to True there, False on the CPU) for the dense
+family, the WKV6 recurrence for the ssm family (RWKV6), and RMSNorm
+wherever the model normalizes with it.  ``init_cache`` gives each batch its
+per-layer caches: KV caches for attention layers, recurrent states for
+rwkv layers.
 
 Per-slot ragged positions (token-level continuous batching) would need a
 vector-``pos`` decode mask; noted as future work in DESIGN.md.

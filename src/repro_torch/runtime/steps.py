@@ -19,7 +19,8 @@ def make_prefill_step(cfg: ArchConfig, use_flash: bool = False):
 
 def make_decode_step(cfg: ArchConfig):
     def serve_step(params, tokens, cache, pos: int):
-        """One new token for the whole batch against the KV cache."""
+        """One new token for the whole batch against the caches (KV
+        caches or recurrent states)."""
         logits, cache = forward_decode(cfg, params, tokens, cache, pos)
         # argmax gives int64 in torch where jnp.argmax gives int32
         next_tokens = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)

@@ -1,0 +1,128 @@
+"""The port's WKV6 and RMSNorm CUDA kernels against their plain PyTorch
+versions, on the card.
+
+Every test here needs an NVIDIA GPU (the kernels have no CPU mode), carries
+the ``cuda`` marker and skips without one.  The file imports neither JAX nor
+the JAX package, so it also runs where only PyTorch is installed:
+
+    python -m pytest -q --noconftest -m cuda tests/test_torch_kernels_cuda.py
+"""
+import pytest
+import torch
+
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.rwkv6 import ops as wkv_ops
+
+# bf16: outputs rounded to bf16 (2^-8 relative), as tests/test_kernels.py.
+# float32: the kernels sum in another order than the plain versions; WKV6
+# sums 64-term products over a 1024-step recurrence (1e-4 absolute).
+RMS_TOL = {torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
+           torch.float32: dict(rtol=2e-5, atol=2e-5)}
+WKV_TOL = {torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
+           torch.float32: dict(rtol=2e-5, atol=1e-4)}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _wkv_inputs(B, T, H, hd, dtype, device, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    r, k, v = (torch.randn((B, T, H, hd), generator=g) * 0.5
+               for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn((B, T, H, hd), generator=g) * 0.5))
+    u = torch.randn((H, hd), generator=g) * 0.3
+    s0 = torch.randn((B, H, hd, hd), generator=g) * 0.1
+    return ([t.to(device, dtype) for t in (r, k, v)]
+            + [t.to(device) for t in (w, u, s0)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,hd,dtype", [
+    (2, 1024, 32, 64, torch.bfloat16),   # the prefill of rwkv6_1_6b
+    (1, 333, 4, 64, torch.float32),      # ragged T
+    (2, 1, 32, 64, torch.bfloat16),      # T = 1
+    (2, 37, 4, 16, torch.float32),       # the reduced config's head dim
+    (1, 50, 2, 128, torch.float32),
+])
+def test_wkv6_kernel_matches_plain(card, B, T, H, hd, dtype):
+    args = _wkv_inputs(B, T, H, hd, dtype, card)
+    before = wkv_ops.launches
+    y, sT = wkv_ops.wkv6(*args)
+    torch.cuda.synchronize()
+    assert wkv_ops.launches == before + 1
+    assert y.dtype == dtype and sT.dtype == torch.float32
+    want_y, want_s = wkv_ops.wkv6_plain(*(t.float() for t in args[:3]),
+                                        *args[3:])
+    torch.testing.assert_close(y.float(), want_y, **WKV_TOL[dtype])
+    torch.testing.assert_close(sT, want_s, **WKV_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_state_carry_composes(card):
+    r, k, v, w, u, s0 = _wkv_inputs(2, 256, 4, 64, torch.bfloat16, card)
+    y_full, s_full = wkv_ops.wkv6(r, k, v, w, u, s0)
+    y1, s_mid = wkv_ops.wkv6(r[:, :128], k[:, :128], v[:, :128], w[:, :128],
+                             u, s0)
+    y2, s_end = wkv_ops.wkv6(r[:, 128:], k[:, 128:], v[:, 128:], w[:, 128:],
+                             u, s_mid)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y_full, rtol=0,
+                               atol=0)
+    torch.testing.assert_close(s_end, s_full, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_refuses_what_it_does_not_take(card):
+    r, k, v, w, u, s0 = _wkv_inputs(1, 8, 2, 48, torch.float32, card)
+    with pytest.raises(ValueError, match="hd"):
+        wkv_ops.wkv6(r, k, v, w, u, s0)
+    r, k, v, w, u, s0 = _wkv_inputs(1, 8, 2, 64, torch.float32, card)
+    with pytest.raises(TypeError, match="float32"):
+        wkv_ops.wkv6(r, k, v, w, u, s0.double())
+    with pytest.raises(TypeError, match="float32"):
+        wkv_ops.wkv6(r, k, v, w.bfloat16(), u, s0)   # w is never rounded
+    with pytest.raises(TypeError):
+        wkv_ops.wkv6(r.half(), k.half(), v.half(), w, u, s0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((2048, 5120), torch.bfloat16),      # qwen3_32b prefill Norm
+    ((131072, 128), torch.bfloat16),     # qwen3_32b prefill q-norm
+    ((2, 5120), torch.bfloat16),         # decode
+    ((37, 1001), torch.float32),         # d not a multiple of 8
+    ((5, 3, 4096), torch.float32),
+])
+def test_rmsnorm_kernel_matches_plain(card, shape, dtype):
+    g = torch.Generator(device="cpu").manual_seed(1)
+    x = torch.randn(shape, generator=g).to(card, dtype)
+    scale = (torch.randn(shape[-1], generator=g) * 0.1 + 1).to(card)
+    before = rms_ops.launches
+    got = rms_ops.rmsnorm(x, scale)
+    torch.cuda.synchronize()
+    assert rms_ops.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    want = rmsnorm_ref(x.float(), scale)
+    torch.testing.assert_close(got.float(), want, **RMS_TOL[dtype])
+    # a strided view (the last token of each sequence) takes the same path
+    if len(shape) == 3:
+        view = x[:, -1:, :]
+        torch.testing.assert_close(rms_ops.rmsnorm(view, scale).float(),
+                                   rmsnorm_ref(view.float(), scale),
+                                   **RMS_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_rmsnorm_kernel_is_deterministic_and_refuses_bad_input(card):
+    x = torch.randn((64, 5120), device=card, dtype=torch.bfloat16)
+    scale = torch.ones(5120, device=card)
+    a, b = rms_ops.rmsnorm(x, scale), rms_ops.rmsnorm(x, scale)
+    assert torch.equal(a, b)
+    with pytest.raises(TypeError, match="scale"):
+        rms_ops.rmsnorm(x, scale.bfloat16())
+    with pytest.raises(TypeError):
+        rms_ops.rmsnorm(x.half(), scale)

@@ -22,6 +22,7 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import (attention as TA, forward_decode,
                                 forward_prefill, from_jax_params, init_cache,
                                 init_lm, layer_kinds)
+from repro_torch.models.transformer import PORTED_FAMILIES
 
 TOL = dict(rtol=2e-2, atol=2e-2)
 DENSE = ["qwen3_32b", "gemma3_12b"]
@@ -147,7 +148,8 @@ def test_init_lm_draws_the_reference_distributions():
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS
-                                  if get_config(a).family != "dense"])
+                                  if get_config(a).family
+                                  not in PORTED_FAMILIES])
 def test_unported_families_raise(arch):
     cfg = get_config(arch, reduced=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
