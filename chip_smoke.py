@@ -6,7 +6,9 @@
 Four phases, each of which raises on failure (nothing is caught):
 
 1. build: compiles every CUDA kernel of the port from ``src/repro_torch``
-   with ``nvcc`` (one process per source, all at once) into ``build/``;
+   with ``nvcc`` (one process per source, all at once) into ``build/``,
+   prints ptxas's register and spill report and counts the flash library's
+   tensor-core instructions (HGMMA, HMMA) with ``cuobjdump -sass``;
 2. kernels: each kernel (flash attention, RMSNorm, WKV6) against its plain
    PyTorch version on the card, at the shapes the serving phases give it
    and a few more (ragged lengths, other head dims, T = 1, float32), with
@@ -173,19 +175,75 @@ def visible_pairs(S: int, causal: bool, window: int) -> int:
     return int(mask.sum())
 
 
-def phase_build() -> None:
+def sass_counts(lib_path) -> dict:
+    """Tensor-core instructions in a built library's SASS, counted from
+    ``cuobjdump -sass`` of the toolkit that built it: HGMMA (wgmma) and HMMA
+    (mma.sync).  Raises if ``cuobjdump`` is missing."""
+    from repro_torch.kernels import build
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        raise RuntimeError(f"cuobjdump not found beside nvcc ({tool})")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], check=True,
+                          capture_output=True, text=True).stdout
+    lines = sass.splitlines()
+    return {op: sum(f" {op}." in ln or f" {op} " in ln for ln in lines)
+            for op in ("HGMMA", "HMMA")}
+
+
+def ptxas_report(text: str) -> list:
+    """(kernel, registers, spill stores, spill loads) per kernel of an
+    ``nvcc -Xptxas -v`` log, names demangled by ``c++filt`` where the
+    machine has it."""
+    import re
+    import shutil
+    rows, name, spill = [], None, ("?", "?")
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = m.groups()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append([name, m.group(1), *spill])
+            name, spill = None, ("?", "?")
+    tool = shutil.which("c++filt")
+    if tool and rows:
+        names = subprocess.run([tool], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True).stdout
+        names = names.split("\n")
+        for r, n in zip(rows, names):
+            n = n.replace("(anonymous namespace)::", "")
+            r[0] = n.split("(")[0].removeprefix("void ") or r[0]
+    return rows
+
+
+def phase_build() -> dict:
+    """Builds every kernel library, prints ptxas's registers and spills per
+    kernel; returns the flash library's SASS tensor-core counts."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.compile_all()
     print(f"[build] {len(logs)} kernel libraries in "
           f"{time.perf_counter() - t0:.2f} s")
-    for name, text in logs.items():
+    for lib, text in logs.items():
+        for kernel, regs, stores, loads in ptxas_report(text):
+            print(f"[build] {lib}: {kernel}: {regs} registers, {stores} bytes "
+                  f"spill stores, {loads} bytes spill loads")
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"[build] {name}: {line.strip()}")
+            if "warning" in line or "error" in line:
+                print(f"[build] {lib}: {line.strip()}")
+    counts = sass_counts(build.library_path("flash_attention"))
+    print(f"[build] flash_attention SASS tensor-core instructions: "
+          f"{json.dumps(counts)}")
+    if not counts["HGMMA"]:
+        raise AssertionError("the flash library holds no HGMMA instruction")
+    return counts
 
 
-def phase_flash() -> dict:
+def phase_flash(sass: dict) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
@@ -232,7 +290,9 @@ def phase_flash() -> dict:
                 source="src/repro_torch/kernels/flash_attention/csrc/"
                        "flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention/kernel.py:30",
-                max_abs_err=worst, **timing)
+                max_abs_err=worst, **timing,
+                bf16_kernel="flash_fwd_wgmma_kernel",
+                f32_kernel="flash_fwd_simt_kernel", sass=sass)
 
 
 def phase_wkv6() -> dict:
@@ -309,7 +369,7 @@ def phase_rmsnorm() -> dict:
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    worst, timing = 0.0, None
+    worst, shapes = 0.0, []
     for i, (label, shape, dt) in enumerate(RMS_CASES):
         dtype = getattr(torch, dt)
         x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -331,19 +391,20 @@ def phase_rmsnorm() -> dict:
         lib_args = [(c, (shape[-1],), scale.to(dtype), 1e-6)
                     for c, _ in copies]
         library_ms = time_ms(F.rms_norm, iters=50, args=lib_args)
-        row = dict(ms=kernel_ms, eager_ms=eager_ms, plain_ms=plain_ms,
-                   library_ms=library_ms,
+        row = dict(shape=list(shape), ms=kernel_ms, eager_ms=eager_ms,
+                   plain_ms=plain_ms, library_ms=library_ms,
                    **bound(4 * x.numel(), nbytes, PEAK_F32_FLOPS))
         print(f"[kernels] rmsnorm {label}: kernel {kernel_ms:.4f} ms (issued "
               f"eagerly {eager_ms:.4f} ms), plain "
               f"{plain_ms:.4f} ms, F.rms_norm {library_ms:.4f} ms, bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {nbytes:.4e} B)")
-        timing = timing or row
+        shapes.append(row)
         del copies, lib_args
+    timing = {k: v for k, v in shapes[0].items() if k != "shape"}
     return dict(name="rmsnorm", route="cuda",
                 source="src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
                 replaces="src/repro/kernels/rmsnorm/kernel.py:16",
-                max_abs_err=worst, **timing)
+                max_abs_err=worst, **timing, shapes=shapes)
 
 
 def device_busy_us(events) -> tuple:
@@ -647,8 +708,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     profile = "--profile" in sys.argv
     t0 = time.perf_counter()
-    phase_build()
-    rows = [phase_flash(), phase_rmsnorm(), phase_wkv6()]
+    sass = phase_build()
+    rows = [phase_flash(sass), phase_rmsnorm(), phase_wkv6()]
     launches = phase_qwen3(card, profile)
     # The qwen3 engine's reference cycles hold its weights until collected.
     gc.collect()

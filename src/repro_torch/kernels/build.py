@@ -3,10 +3,12 @@
 Each ``csrc/*.cu`` source is compiled on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), under
 ``build/kernels/`` at the repository root.  The library's file name carries a
-hash of its source, so an edited source is rebuilt and an unchanged one is
-reused.  Nothing is built when a module is imported: a kernel's wrapper asks
-for its library on its first launch, and ``compile_all`` builds every source
-at once, one ``nvcc`` process each, all started together.
+hash of every file in the source's ``csrc/`` directory (the ``.cu`` and the
+headers it includes) and of the compiler flags, so an edited source, header
+or flag is rebuilt and an unchanged one is reused.  Nothing is built when a
+module is imported: a kernel's wrapper asks for its library on its first
+launch, and ``compile_all`` builds every source at once, one ``nvcc``
+process each, all started together.
 """
 from __future__ import annotations
 
@@ -46,9 +48,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    csrc = SOURCES[name].parent
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(p for p in csrc.rglob("*") if p.is_file()):
+        h.update(str(f.relative_to(csrc)).encode() + b"\0" + f.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

@@ -3,7 +3,9 @@ of ``repro.kernels.flash_attention.ops.flash_attention``.
 
 A CUDA tensor goes to the hand-written Hopper kernel
 (``csrc/flash_attention.cu``), launched on the current stream — inside the
-scheduler that is the lane's stream.  A CPU tensor goes to the plain
+scheduler that is the lane's stream: bfloat16 to the tensor-core kernel,
+which loads q, k and v with TMA and so needs 16-byte-aligned bases and
+(B, S, H) strides, float32 to the SIMT kernel.  A CPU tensor goes to the plain
 PyTorch version (``ref.attention_ref``).  There is no other path: a CUDA
 input the kernel does not take raises.
 """
@@ -62,6 +64,22 @@ def _check(q, k, v) -> None:
         raise ValueError("flash_attention: q, k, v lie on different devices")
     if min(q.stride(3), k.stride(3), v.stride(3)) != 1:
         raise ValueError("flash_attention: the head dim must be contiguous")
+    if q.dtype == torch.bfloat16 and q.device.type == "cuda":
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            if x.data_ptr() % 16 or any(
+                    (st * x.element_size()) % 16 for st in _strides(x)):
+                raise ValueError(
+                    f"flash_attention: bf16 {name} needs a 16-byte-aligned "
+                    f"base and (B, S, H) strides, got strides "
+                    f"{tuple(x.stride())} (the kernel loads it with TMA)")
+
+
+def _strides(x):
+    """(B, S, H) strides in elements, a size-1 dim's replaced by hd (its
+    stride is never stepped, and the TMA map wants a multiple of 16
+    bytes)."""
+    return [st if n > 1 else x.shape[3]
+            for st, n in zip(x.stride()[:3], x.shape[:3])]
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
@@ -81,10 +99,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             _DTYPE_CODES[q.dtype], B, H, Hkv, Sq, Sk, hd,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            o.stride(0), o.stride(1), o.stride(2),
+            *_strides(q), *_strides(k), *_strides(v), *_strides(o),
             float(hd ** -0.5), int(bool(causal)), int(window),
             float(softcap), stream)
     if rc != 0:

@@ -11,16 +11,26 @@
 // parameters are).
 //
 // Design.  The TPU kernel normalizes a (block_rows x d) VMEM tile per grid
-// step, with d padded by its caller.  Here a group of threads owns one row:
-// one warp per row (eight rows to a block) for narrow rows such as the
-// qk-norm's hd = 128, up to 1024 threads for wide rows such as d = 5120.
+// step, with d padded by its caller.  Here a group of threads owns one row.
 // Each thread loads its share of the row once, with 16-byte loads when the
-// row's length, base and stride allow and element loads otherwise, keeps
-// it in registers, accumulates its sum of squares in float32, and the
-// group reduces through warp shuffles (and shared memory across warps).
-// Then each thread scales the values it holds and stores them with the same
-// width.  So x is read once and y written once, any d is masked, and the
-// fixed reduction tree gives the same result on every run (no atomics).
+// row's length, base and stride (and the scale's base) allow and element
+// loads otherwise, keeps it in registers, accumulates its sum of squares in
+// float32, and the group reduces through warp shuffles (and, past one warp,
+// one shared-memory step that every thread sums in the same order).  Then
+// each thread scales the values it holds, reading the scale in 16-byte
+// packs, and stores them with the same width.  So x is read once and y
+// written once, any d is masked, and the fixed reduction tree gives the
+// same result on every run (no atomics).
+//
+// * Narrow rows (at most 64 packs, such as the qk-norm's hd = 128): a group
+//   of 4 to 32 lanes per row, the smallest power of two that leaves each
+//   lane at most two packs, and 256 threads, so 8 to 64 rows, per block.
+// * Wide rows (such as d = 5120, 640 packs of 8 bf16): 4 packs per thread
+//   while the row needs at most 256 threads (8 or 16 past that), so that
+//   several 16-byte loads per thread are in flight at once, and a thread
+//   count that is a multiple of 32 but not a power of two (160 threads for
+//   640 packs): small blocks, many rows resident per SM to cover HBM's
+//   latency, and no thread without a pack.
 //
 // What bounds it: bytes.  About 4 operations per element against 4 bytes
 // (bf16 in and out) leave it far below the card's 295 operations per byte;
@@ -62,13 +72,14 @@ struct Params {
   float eps;
 };
 
-// blockDim.x threads per row, blockDim.y rows per block (> 1 only when
-// blockDim.x is one warp).  Thread tx holds packs tx + n * blockDim.x of
-// its row, n < NV.
+// blockDim.x threads per row (a power of two up to 32, or a multiple of 32),
+// blockDim.y rows per block (> 1 only when blockDim.x is at most a warp).
+// Thread tx holds packs tx + n * blockDim.x of its row, n < NV.
 template <typename T, int VEC, int NV>
-__global__ void __launch_bounds__(1024) rmsnorm_kernel(const Params p) {
+__global__ void __launch_bounds__(NV <= 8 ? 256 : 1024, 1)
+rmsnorm_kernel(const Params p) {
   using P = Pack<T, VEC>;
-  __shared__ float red[33];
+  __shared__ float red[32];
   const int tx = threadIdx.x;
   const int tpr = blockDim.x;
   const long long row =
@@ -79,12 +90,15 @@ __global__ void __launch_bounds__(1024) rmsnorm_kernel(const Params p) {
                                            (live ? row : 0) * p.x_rs);
 
   P buf[NV];
-  float ss = 0.f;
 #pragma unroll
   for (int n = 0; n < NV; ++n) {
     const int idx = n * tpr + tx;
-    if (live && idx < npack) {
-      buf[n] = xr[idx];
+    if (live && idx < npack) buf[n] = xr[idx];
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int n = 0; n < NV; ++n) {
+    if (live && n * tpr + tx < npack) {
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
         const float f = to_f32(buf[n].v[e]);
@@ -92,22 +106,15 @@ __global__ void __launch_bounds__(1024) rmsnorm_kernel(const Params p) {
       }
     }
   }
+  // Within the row's lanes (xor offsets below the group size stay in it).
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    ss += __shfl_xor_sync(0xffffffffu, ss, off);
+    if (off < tpr) ss += __shfl_xor_sync(0xffffffffu, ss, off);
   if (tpr > 32) {   // one row per block: combine the warps
-    const int warp = tx >> 5, lane = tx & 31;
-    if (lane == 0) red[warp] = ss;
+    if ((tx & 31) == 0) red[tx >> 5] = ss;
     __syncthreads();
-    if (warp == 0) {
-      float t = lane < (tpr >> 5) ? red[lane] : 0.f;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        t += __shfl_xor_sync(0xffffffffu, t, off);
-      if (lane == 0) red[32] = t;
-    }
-    __syncthreads();
-    ss = red[32];
+    ss = 0.f;
+    for (int w = 0; w < (tpr >> 5); ++w) ss += red[w];
   }
   if (!live) return;
 
@@ -117,12 +124,25 @@ __global__ void __launch_bounds__(1024) rmsnorm_kernel(const Params p) {
   for (int n = 0; n < NV; ++n) {
     const int idx = n * tpr + tx;
     if (idx < npack) {
+      float sc[VEC];
+      if constexpr (VEC % 4 == 0) {
+#pragma unroll
+        for (int q = 0; q < VEC / 4; ++q) {
+          const float4 f4 =
+              __ldg(reinterpret_cast<const float4*>(p.scale + idx * VEC) + q);
+          sc[4 * q] = f4.x;
+          sc[4 * q + 1] = f4.y;
+          sc[4 * q + 2] = f4.z;
+          sc[4 * q + 3] = f4.w;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) sc[e] = __ldg(p.scale + idx * VEC + e);
+      }
       P o;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        const float f = to_f32(buf[n].v[e]) * inv;
-        o.v[e] = from_f32<T>(f * __ldg(p.scale + idx * VEC + e));
-      }
+      for (int e = 0; e < VEC; ++e)
+        o.v[e] = from_f32<T>(to_f32(buf[n].v[e]) * inv * sc[e]);
       yr[idx] = o;
     }
   }
@@ -130,7 +150,7 @@ __global__ void __launch_bounds__(1024) rmsnorm_kernel(const Params p) {
 
 template <typename T, int VEC, int NV>
 int launch(const Params& p, int tpr, cudaStream_t stream) {
-  const int rows = tpr == 32 ? 8 : 1;
+  const int rows = tpr <= 32 ? 256 / tpr : 1;
   const long long blocks = (p.N + rows - 1) / rows;
   if (blocks > 0x7fffffffLL) return -1;
   rmsnorm_kernel<T, VEC, NV>
@@ -158,17 +178,24 @@ template <typename T>
 int dispatch(const Params& p, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   const bool vec = p.d % V == 0 && aligned16(p.x) && aligned16(p.y) &&
+                   aligned16(p.scale) &&
                    (p.x_rs * static_cast<long long>(sizeof(T))) % 16 == 0 &&
                    (p.y_rs * static_cast<long long>(sizeof(T))) % 16 == 0;
-  const int width = vec ? V : 1;
-  const int npack = p.d / width;
-  // Threads per row: the smallest power of two from 32 to 1024 that leaves
-  // at most two packs a thread, then the packs a thread needs (at most 16).
-  int tpr = 32;
-  while (tpr < 1024 && 2 * tpr < npack) tpr *= 2;
-  int nv = 1;
-  while (nv * tpr < npack) nv *= 2;
-  if (nv > 16) return -1;
+  const int npack = p.d / (vec ? V : 1);
+  int tpr, nv;
+  if (npack <= 64) {
+    // Narrow: the smallest group of 4 to 32 lanes with at most two packs
+    // a lane.
+    tpr = 4;
+    while (tpr < 32 && tpr < npack) tpr *= 2;
+    nv = (npack + tpr - 1) / tpr;
+  } else {
+    // Wide: 4 packs a thread up to 256 threads, then 8, then 16; the
+    // threads rounded up to whole warps.
+    nv = npack <= 4 * 256 ? 4 : npack <= 8 * 256 ? 8 : 16;
+    tpr = ((npack + nv - 1) / nv + 31) / 32 * 32;
+    if (tpr > 1024) return -1;
+  }
   return vec ? pick_nv<T, V>(p, tpr, nv, stream)
              : pick_nv<T, 1>(p, tpr, nv, stream);
 }

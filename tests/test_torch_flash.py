@@ -3,8 +3,11 @@
 On CPU tensors the port's ``flash_attention`` is its plain PyTorch version;
 it must agree with the Pallas kernel (interpret mode) and with the JAX
 ``attention_ref`` at the tolerances of ``tests/test_kernels.py``, and it
-must not count a launch.  The hand-written CUDA kernel itself runs only on
-the card: its test is marked ``cuda`` and skips here.
+must not count a launch.  The bf16 CUDA kernel rounds at one point the TPU
+kernel does not (P to bf16 before P V); a plain model of its rounding
+points is held against the same references here.  The hand-written CUDA
+kernel itself runs only on the card: its test is marked ``cuda`` and skips
+here.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +17,7 @@ import torch
 from repro.kernels.flash_attention.ops import flash_attention as jflash
 from repro.kernels.flash_attention.ref import attention_ref as jref
 from repro_torch.kernels.flash_attention import ops
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_ref
 
 CASES = [
     (2, 256, 4, 2, 64, 0, 0.0),        # GQA
@@ -57,6 +60,45 @@ def test_flash_attention_matches_jax(B, S, H, Hkv, hd, window, softcap,
                                    **_tol(dtype))
 
 
+def _wgmma_rounding_attention(q, k, v, *, window=0, softcap=0.0):
+    """Causal attention with the rounding points of the bf16 tensor-core
+    kernel: S = q . k in f32, then times hd^-0.5 in f32, softcap and mask;
+    the softmax statistics in f32; P rounded to bf16 before P V, which
+    accumulates in f32; the output rounded to bf16."""
+    B, Sq, H, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, H // Hkv, hd).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * hd ** -0.5
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    q_pos = torch.arange(Sq)[:, None]
+    k_pos = torch.arange(Sk)[None, :]
+    mask = k_pos <= q_pos
+    if window > 0:
+        mask &= (q_pos - k_pos) < window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(torch.bfloat16).float(),
+                     v.float())
+    o = o / p.sum(-1).permute(0, 3, 1, 2)[..., None]
+    return o.reshape(B, Sq, H, hd).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,hd,window,softcap", CASES)
+def test_flash_wgmma_rounding_matches_jax(B, S, H, Hkv, hd, window,
+                                          softcap):
+    (jq, jk, jv), (q, k, v) = _inputs(B, S, H, Hkv, hd, "bfloat16")
+    got = _wgmma_rounding_attention(q, k, v, window=window, softcap=softcap)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    want_kernel = jflash(jq, jk, jv, window=window, softcap=softcap,
+                         block_q=64, block_k=64)
+    want_ref = jref(jq, jk, jv, window=window, softcap=softcap)
+    for want in (want_kernel, want_ref):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   **_tol("bfloat16"))
+
+
 def test_flash_cuda_path_refuses_cpu_tensors():
     _, (q, k, v) = _inputs(1, 64, 2, 1, 64, "float32")
     with pytest.raises(ValueError, match="CUDA"):
@@ -71,6 +113,10 @@ def test_flash_cuda_path_refuses_cpu_tensors():
     (2, 1024, 64, 8, 128, 0, 0.0),     # the serving shape of qwen3_32b
     (1, 1000, 16, 8, 256, 256, 0.0),   # hd 256, window, ragged S
     (1, 333, 8, 1, 64, 0, 30.0),       # softcap, MQA, ragged S
+    # edges of the bf16 kernel's 128-row query and 64- or 128-key tiles
+    (2, 77, 4, 2, 128, 0, 0.0),        # S under one tile
+    (1, 1000, 8, 8, 64, 17, 0.0),      # window under one k tile
+    (1, 200, 8, 1, 256, 0, 0.0),       # hd 256, MQA
 ])
 def test_flash_cuda_kernel_matches_plain(B, S, H, Hkv, hd, window, softcap,
                                          dtype):
@@ -85,3 +131,4 @@ def test_flash_cuda_kernel_matches_plain(B, S, H, Hkv, hd, window, softcap,
     want = attention_ref(q.float(), k.float(), v.float(), window=window,
                          softcap=softcap)
     torch.testing.assert_close(got.float(), want, **_tol(dtype))
+

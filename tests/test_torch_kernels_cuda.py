@@ -1,5 +1,5 @@
-"""The port's WKV6 and RMSNorm CUDA kernels against their plain PyTorch
-versions, on the card.
+"""The port's flash-attention, WKV6 and RMSNorm CUDA kernels against their
+plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU (the kernels have no CPU mode), carries
 the ``cuda`` marker and skips without one.  The file imports neither JAX nor
@@ -10,6 +10,8 @@ the JAX package, so it also runs where only PyTorch is installed:
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
@@ -21,6 +23,10 @@ RMS_TOL = {torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
            torch.float32: dict(rtol=2e-5, atol=2e-5)}
 WKV_TOL = {torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
            torch.float32: dict(rtol=2e-5, atol=1e-4)}
+# flash attention: bf16 as tests/test_kernels.py (the tensor-core kernel
+# also rounds P to bf16, about 2^-9 relative); float32 sums in another order.
+FLASH_TOL = {torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
+             torch.float32: dict(rtol=2e-5, atol=2e-5)}
 
 
 @pytest.fixture
@@ -28,6 +34,46 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,H,Hkv,hd,causal,window,softcap", [
+    (2, 1024, 64, 8, 128, True, 0, 0.0),    # the serving shape of qwen3_32b
+    (2, 77, 4, 2, 128, True, 0, 0.0),       # S under one 128-row q tile
+    (1, 1000, 8, 8, 64, True, 17, 0.0),     # window under one k tile
+    (1, 200, 8, 1, 256, True, 0, 0.0),      # hd 256, MQA, ragged S
+    (1, 333, 8, 1, 64, True, 0, 30.0),      # softcap, MQA
+    (2, 300, 4, 2, 128, False, 100, 20.0),  # non-causal window, softcap
+    (1, 130, 2, 2, 256, False, 0, 0.0),     # non-causal, ragged past Sk
+])
+def test_flash_kernel_matches_plain(card, B, S, H, Hkv, hd, causal, window,
+                                    softcap, dtype):
+    g = torch.Generator(device="cpu").manual_seed(2)
+    q, k, v = (torch.randn((B, S, n, hd), generator=g).to(card, dtype)
+               for n in (H, Hkv, Hkv))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = flash_ops.launches
+    got = flash_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_ops.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = attention_ref(q.float(), k.float(), v.float(), **kw)
+    torch.testing.assert_close(got.float(), want, **FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_unaligned_bf16(card):
+    q, k, v = (torch.randn((1, 64, n, 64), device=card).bfloat16()
+               for n in (4, 2, 2))
+    padded = torch.zeros((1, 64, 4, 68), dtype=q.dtype, device=card)
+    with pytest.raises(ValueError, match="16-byte"):   # H stride 136 bytes
+        flash_ops.flash_attention(padded[..., :64], k, v)
+    flat = torch.zeros(k.numel() + 1, dtype=k.dtype, device=card)
+    with pytest.raises(ValueError, match="16-byte"):   # base 2 bytes off
+        flash_ops.flash_attention(q, k, flat[1:].view(k.shape))
+    # float32 takes the SIMT kernel, which has no such rule
+    flash_ops.flash_attention(padded[..., :64].float(), k.float(), v.float())
 
 
 def _wkv_inputs(B, T, H, hd, dtype, device, seed=0):
@@ -96,6 +142,10 @@ def test_wkv6_kernel_refuses_what_it_does_not_take(card):
     ((2, 5120), torch.bfloat16),         # decode
     ((37, 1001), torch.float32),         # d not a multiple of 8
     ((5, 3, 4096), torch.float32),
+    # rows the wide path's packs do not divide evenly, and a long one
+    ((64, 5000), torch.bfloat16),
+    ((64, 5128), torch.bfloat16),
+    ((64, 8192), torch.bfloat16),
 ])
 def test_rmsnorm_kernel_matches_plain(card, shape, dtype):
     g = torch.Generator(device="cpu").manual_seed(1)
