@@ -13,7 +13,8 @@ Four phases, each of which raises on failure (nothing is caught):
    PyTorch version on the card, at the shapes the serving phases give it
    and a few more (ragged lengths, other head dims, T = 1, float32), with
    its time, the plain version's time, one PyTorch library call's time
-   where one computes the same function, and the card's bound;
+   where one computes the same function, and the card's bound; WKV6 also
+   at a state-carry split and a repeat run, both held bitwise;
 3. qwen3 serving: LM serving through the scheduler.  Full-width
    ``qwen3_32b`` cut to 4 layers, random weights from a seeded generator,
    8 requests of 1024-token prompts in batches of 2 on CUDA-stream lanes.
@@ -21,8 +22,9 @@ Four phases, each of which raises on failure (nothing is caught):
    RMSNorm went through the hand-written kernels;
 4. rwkv serving: the same requests served by ``rwkv6_1_6b`` at full width
    and full depth (24 layers).  Checks the tokens, the lanes, that every
-   prefill recurrence went through the WKV6 kernel, and the prefill logits
-   against the plain recurrence after 2 to 24 layers, in float32 and bf16.
+   recurrence (each prefill, and each decode step at T = 1) went through
+   the WKV6 kernel, and the prefill logits against the plain recurrence
+   after 2 to 24 layers, in float32 and bf16.
 
 Each serving phase sets every kernel's launch count to 0 just before it
 serves and reads the counts just after.  ``--profile`` adds, to each
@@ -67,13 +69,19 @@ FLASH_CASES = [
     ("f32 non-causal window", 2, 256, 4, 2, 64, "float32", False, 64, 20.0),
 ]
 # (name, B, T, H, hd, dtype of r, k, v); w, u and the state are float32.
-# The first case is the prefill shape of the rwkv serving phase.
+# The first case is the prefill shape of the rwkv serving phase, the
+# second its decode step; both are timed.
 WKV_CASES = [
     ("rwkv6_1_6b prefill", 2, 1024, 32, 64, "bfloat16"),
+    ("rwkv6_1_6b decode", 2, 1, 32, 64, "float32"),
     ("f32 ragged T", 1, 333, 4, 64, "float32"),
     ("T=1 (one-token prefill)", 2, 1, 32, 64, "bfloat16"),
     ("reduced hd16 f32 ragged", 2, 37, 4, 16, "float32"),
+    ("hd128 bf16 ragged", 1, 50, 2, 128, "bfloat16"),
 ]
+# The WKV6 kernel's instantiations: r/k/v type x head dim x with or without
+# the asynchronous copies.  ptxas must report no spill in any of them.
+WKV_KERNELS = 12
 # (name, shape of x, dtype); scale is float32.  The first three are the
 # shapes of the qwen3 serving phase; the first is the row's timing.
 RMS_CASES = [
@@ -94,10 +102,13 @@ def kernel_ops() -> dict:
 def reset_launches() -> None:
     for mod in kernel_ops().values():
         mod.launches = 0
+    kernel_ops()["wkv6"].launches_t1 = 0
 
 
 def read_launches() -> dict:
-    return {name: mod.launches for name, mod in kernel_ops().items()}
+    counts = {name: mod.launches for name, mod in kernel_ops().items()}
+    counts["wkv6_t1"] = kernel_ops()["wkv6"].launches_t1
+    return counts
 
 
 def bound(flops: float, nbytes: float, peak_flops: float) -> dict:
@@ -229,9 +240,16 @@ def phase_build() -> dict:
     print(f"[build] {len(logs)} kernel libraries in "
           f"{time.perf_counter() - t0:.2f} s")
     for lib, text in logs.items():
-        for kernel, regs, stores, loads in ptxas_report(text):
+        rows = ptxas_report(text)
+        for kernel, regs, stores, loads in rows:
             print(f"[build] {lib}: {kernel}: {regs} registers, {stores} bytes "
                   f"spill stores, {loads} bytes spill loads")
+        if lib == "wkv6" and text:   # "" when built by an earlier run
+            spills = [r for r in rows if r[2] != "0" or r[3] != "0"]
+            if len(rows) != WKV_KERNELS or spills:
+                raise AssertionError(
+                    f"wkv6: ptxas reported {len(rows)} kernels (expected "
+                    f"{WKV_KERNELS}), spilling: {spills}")
         for line in text.splitlines():
             if "warning" in line or "error" in line:
                 print(f"[build] {lib}: {line.strip()}")
@@ -295,6 +313,34 @@ def phase_flash(sass: dict) -> dict:
                 f32_kernel="flash_fwd_simt_kernel", sass=sass)
 
 
+def wkv6_timing(ops, args, y, sT, label: str, iters: int,
+                plain_iters: int) -> dict:
+    """The WKV6 kernel's time on ``args`` (CUDA-graph replay, and issued
+    eagerly), the plain version's, and the card's bound for the call."""
+    r, k, v, w, u, s0 = args
+    B, T, H, hd = r.shape
+    kernel_ms = time_ms(lambda: ops.wkv6(*args), iters=iters)
+    eager_ms = time_ms(lambda: ops.wkv6(*args), iters=iters, graph=False)
+    plain_ms = time_ms(lambda: ops.wkv6_plain(*args), iters=plain_iters,
+                       warmup=1)
+    # The function needs 5 float32 operations per (i, j) of S, per token
+    # and head: r^T S (a multiply and an add), then w S + k v^T (two
+    # multiplies and an add); r (u * k) v is O(hd).
+    flops = 5 * hd * hd * B * T * H
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (r, k, v, w, u, s0, y, sT))
+    t = dict(ms=kernel_ms, eager_ms=eager_ms, plain_ms=plain_ms,
+             library_ms=None, **bound(flops, nbytes, PEAK_F32_FLOPS))
+    print(f"[kernels] wkv6 {label}: kernel {kernel_ms:.4f} ms (issued "
+          f"eagerly {eager_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
+          f"none (no PyTorch call computes WKV6); bytes {nbytes:.4e} B = "
+          f"{t['bytes_ms']:.4f} ms at the HBM rate, {flops:.4e} float32 "
+          f"FLOP = {t['ops_ms']:.4f} ms at the float32 rate; bound "
+          f"{t['bound_ms']:.4f} ms ({t['bound_by']}), "
+          f"{t['bound_ms'] / kernel_ms:.3f} of it reached")
+    return t
+
+
 def phase_wkv6() -> dict:
     import torch
     from repro_torch.kernels.rwkv6 import ops
@@ -303,63 +349,56 @@ def phase_wkv6() -> dict:
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
-    worst, timing = 0.0, None
-    for (label, B, T, H, hd, dt) in WKV_CASES:
+    worst, timing, decode = 0.0, None, None
+    for i, (label, B, T, H, hd, dt) in enumerate(WKV_CASES):
         dtype = getattr(torch, dt)
         r, k, v = (randn(B, T, H, hd).mul(0.5).to(dtype) for _ in range(3))
         w = torch.exp(-torch.exp(randn(B, T, H, hd) * 0.5))   # float32
         u = randn(H, hd) * 0.3
         s0 = randn(B, H, hd, hd) * 0.1                          # nonzero
-        y, sT = ops.wkv6(r, k, v, w, u, s0)
+        args = (r, k, v, w, u, s0)
+        y, sT = ops.wkv6(*args)
         torch.cuda.synchronize()
         want_y, want_s = ops.wkv6_plain(r.float(), k.float(), v.float(), w,
                                         u, s0)
-        what = f"wkv6 {label}: B={B} T={T} H={H} hd={hd} r/k/v {dt}, w f32"
+        what = (f"wkv6 {label}: B={B} T={T} H={H} hd={hd} r/k/v {dt}, w f32"
+                f", {'with' if ops.uses_ring(*args) else 'without'} the "
+                f"asynchronous copies")
         worst = max(worst,
                     check_close(what + " (y)", y, want_y, TOL[dt],
                                 WKV_ATOL[dt]),
                     check_close(what + " (state)", sT, want_s, TOL["float32"],
                                 WKV_ATOL["float32"]))
-        if timing is not None:
+        if i == 1:
+            decode = wkv6_timing(ops, args, y, sT, "at the decode shape",
+                                 iters=200, plain_iters=50)
+        if i != 0:
             continue
-        # The serving shape: state carry, time and bound.
-        h = T // 2
+        # The prefill shape: the state carried across a split that is not
+        # a multiple of the kernel's 16-step chunk, and a repeat run.
+        h = 517
         y1, s_mid = ops.wkv6(r[:, :h], k[:, :h], v[:, :h], w[:, :h], u, s0)
         y2, s_end = ops.wkv6(r[:, h:], k[:, h:], v[:, h:], w[:, h:], u,
                              s_mid)
         if not (torch.equal(torch.cat([y1, y2], 1), y)
                 and torch.equal(s_end, sT)):
-            raise AssertionError("wkv6 over two halves with the state "
+            raise AssertionError("wkv6 over two parts with the state "
                                  "carried differs from one call")
+        y_again, s_again = ops.wkv6(*args)
+        if not (torch.equal(y_again, y) and torch.equal(s_again, sT)):
+            raise AssertionError("two runs of wkv6 on the same inputs "
+                                 "differ")
         print(f"[kernels] wkv6 {label}: two calls split at t={h} with the "
-              f"state carried equal one call exactly")
-        kernel_ms = time_ms(lambda: ops.wkv6(r, k, v, w, u, s0), iters=20)
-        eager_ms = time_ms(lambda: ops.wkv6(r, k, v, w, u, s0), iters=20,
-                           graph=False)
-        plain_ms = time_ms(lambda: ops.wkv6_plain(r, k, v, w, u, s0),
-                           iters=2, warmup=1)
-        # The function needs 5 float32 operations per (i, j) of S, per
-        # token and head: r^T S (a multiply and an add), then w S + k v^T
-        # (two multiplies and an add); r (u * k) v is O(hd).  The kernel
-        # does 7, forming r (S + u k v^T) per element as the TPU kernel does.
-        flops = 5 * hd * hd * B * T * H
-        nbytes = sum(t.numel() * t.element_size()
-                     for t in (r, k, v, w, u, s0, y, sT))
-        timing = dict(ms=kernel_ms, eager_ms=eager_ms, plain_ms=plain_ms,
-                      library_ms=None, **bound(flops, nbytes, PEAK_F32_FLOPS))
-        print(f"[kernels] wkv6 at the serving shape: kernel {kernel_ms:.4f} "
-              f"ms (issued eagerly {eager_ms:.4f} ms), plain "
-              f"{plain_ms:.4f} ms, library none (no PyTorch call "
-              f"computes WKV6); bytes {nbytes:.4e} B = "
-              f"{timing['bytes_ms']:.4f} ms at the HBM rate, "
-              f"{flops:.4e} float32 FLOP = {timing['ops_ms']:.4f} ms at the "
-              f"float32 rate (the kernel's own 7 hd^2 form: "
-              f"{flops * 7 / 5 / PEAK_F32_FLOPS * 1e3:.4f} ms); bound "
-              f"{timing['bound_ms']:.4f} ms ({timing['bound_by']})")
+              f"state carried equal one call exactly; a second run equals "
+              f"the first exactly")
+        timing = wkv6_timing(ops, args, y, sT, "at the serving shape",
+                             iters=20, plain_iters=2)
     return dict(name="wkv6", route="cuda",
                 source="src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
                 replaces="src/repro/kernels/rwkv6/kernel.py:23",
-                max_abs_err=worst, **timing)
+                max_abs_err=worst, **timing,
+                decode={k: decode[k] for k in ("ms", "eager_ms", "plain_ms",
+                                               "bound_ms", "bound_by")})
 
 
 def phase_rmsnorm() -> dict:
@@ -683,9 +722,13 @@ def phase_rwkv(card: str, profile: bool = False) -> dict:
 
     launches = serve_and_check("rwkv", cfg, model, prompts, batch, new,
                                direct, card, profile)
-    # One recurrence per layer in each batch's prefill; decode is plain,
-    # and the family has no attention and layernorm only.
-    expect_launches(launches, {"wkv6": cfg.n_layers * n_req // batch,
+    # One recurrence per layer in each batch's prefill and in each of its
+    # new - 1 decode steps (T = 1); the family has no attention and
+    # layernorm only.
+    n_batches = n_req // batch
+    expect_launches(launches, {"wkv6": cfg.n_layers * n_batches * new,
+                               "wkv6_t1": cfg.n_layers * n_batches
+                               * (new - 1),
                                "flash_attention": 0, "rmsnorm": 0})
     return launches
 
@@ -718,6 +761,9 @@ def main() -> int:
     for row in rows:
         row["launches"] = (rwkv if row["name"] == "wkv6" else launches)[
             row["name"]]
+        if row["name"] == "wkv6":
+            row["launches_decode"] = rwkv["wkv6_t1"]
+            row["launches_prefill"] = rwkv["wkv6"] - rwkv["wkv6_t1"]
     print(f"[done] {time.perf_counter() - t0:.2f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

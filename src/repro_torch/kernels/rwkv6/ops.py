@@ -3,9 +3,12 @@
 
 A CUDA tensor goes to the hand-written Hopper kernel (``csrc/wkv6.cu``),
 launched on the current stream; it reads the (B, T, H, hd) layout through
-strides, so no head-major copy is made.  A CPU tensor goes to the plain
-PyTorch version (``ref.wkv6_ref``).  There is no other path: a CUDA input
-the kernel does not take raises.
+strides, so no head-major copy is made.  The kernel stages time through a
+ring of chunk buffers filled by asynchronous copies (``cp.async``) when
+T > 1 and every input is 16-byte aligned, and by plain loads otherwise
+(decode's T = 1, unaligned views); ``uses_ring`` tells which.  A CPU
+tensor goes to the plain PyTorch version (``ref.wkv6_ref``).  There is no
+other path: a CUDA input the kernel does not take raises.
 """
 from __future__ import annotations
 
@@ -17,9 +20,10 @@ import torch
 from ..build import load
 from .ref import wkv6_ref
 
-# Launches of the CUDA kernel since the count was last set to 0.  The CPU
-# path never counts.
+# Launches of the CUDA kernel since the count was last set to 0, and those
+# of them with T = 1 (decode steps).  The CPU path never counts.
 launches = 0
+launches_t1 = 0
 _count_lock = threading.Lock()
 
 SUPPORTED_HEAD_DIMS = (16, 64, 128)
@@ -31,10 +35,10 @@ def _library():
     global _lib
     if _lib is None:
         lib = load("wkv6")
-        lib.wkv6_fwd.restype = ctypes.c_int
-        lib.wkv6_fwd.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
-            + [ctypes.c_longlong] * 15 + [ctypes.c_void_p])
+        for fn in (lib.wkv6_fwd, lib.wkv6_uses_ring):
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                           + [ctypes.c_longlong] * 15 + [ctypes.c_void_p])
         lib.wkv6_error_string.restype = ctypes.c_char_p
         lib.wkv6_error_string.argtypes = [ctypes.c_int]
         _lib = lib
@@ -70,9 +74,10 @@ def wkv6_plain(r, k, v, w, u, s0):
     return y, sT.reshape(B, H, hd, hd)
 
 
-def wkv6_cuda(r, k, v, w, u, s0):
-    """Launch the Hopper kernel on CUDA tensors (no CPU path)."""
-    global launches
+def _kernel_args(r, k, v, w, u, s0):
+    """Checks CUDA inputs and returns (y, sT, the C function's arguments
+    but the stream, the contiguous u and s0 those arguments point into,
+    to be kept alive until the launch)."""
     _check(r, k, v, w, u, s0)
     if r.device.type != "cuda" or any(t.device != r.device
                                       for t in (k, v, w, u, s0)):
@@ -97,23 +102,40 @@ def wkv6_cuda(r, k, v, w, u, s0):
     s0 = s0.contiguous()
     y = torch.empty((B, T, H, hd), dtype=r.dtype, device=r.device)
     sT = torch.empty_like(s0)
-    lib = _library()
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
-        rc = lib.wkv6_fwd(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+    args = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), s0.data_ptr(), y.data_ptr(), sT.data_ptr(),
             _DTYPE_CODES[r.dtype], B, T, H, hd,
             r.stride(0), r.stride(1), r.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
             w.stride(0), w.stride(1), w.stride(2),
-            y.stride(0), y.stride(1), y.stride(2), stream)
+            y.stride(0), y.stride(1), y.stride(2))
+    return y, sT, args, (u, s0)
+
+
+def uses_ring(r, k, v, w, u, s0) -> bool:
+    """Whether ``wkv6_cuda`` on these CUDA inputs fills the kernel's ring
+    of chunk buffers by asynchronous copies (T > 1, every input 16-byte
+    aligned) or by plain loads.  Launches nothing."""
+    _, _, args, _ = _kernel_args(r, k, v, w, u, s0)
+    return bool(_library().wkv6_uses_ring(*args, None))
+
+
+def wkv6_cuda(r, k, v, w, u, s0):
+    """Launch the Hopper kernel on CUDA tensors (no CPU path)."""
+    global launches, launches_t1
+    y, sT, args, _alive = _kernel_args(r, k, v, w, u, s0)
+    B, T, H, hd = r.shape
+    lib = _library()
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        rc = lib.wkv6_fwd(*args, stream)
     if rc != 0:
         raise RuntimeError("wkv6 kernel launch failed: "
                            + lib.wkv6_error_string(rc).decode())
     with _count_lock:
         launches += 1
+        launches_t1 += T == 1
     return y.reshape(B, T, H * hd), sT
 
 

@@ -7,11 +7,13 @@ State per head: S (hd x hd, float32); per step
 with w_t = exp(-exp(ŵ_t)) data-dependent through a LoRA on the shifted
 input, built in float32.
 
-Sequence mode (prefill) runs the recurrence through
-``kernels.rwkv6.ops.wkv6``: the hand-written kernel on the card, the plain
-loop on the CPU.  The reference's chunked ``jax.checkpoint`` scan exists
-only for the backward pass and is not carried over.  Decode keeps the
-reference's single plain step (``_wkv_step``).
+Both modes run the recurrence through ``kernels.rwkv6.ops.wkv6``: the
+hand-written kernel on the card, the plain loop on the CPU.  Sequence mode
+(prefill) gives it the whole prompt; decode gives it T = 1 with r, k, v in
+float32, so that y reaches the group norm in float32 as the reference's
+single plain step (``_wkv_step``) leaves it.  The reference's chunked
+``jax.checkpoint`` scan exists only for the backward pass and is not
+carried over.
 
 A state is a dict ``{"shift", "wkv"}`` (the block adds ``"cmix_shift"``);
 ``apply_rwkv_seq`` and ``apply_rwkv_step`` replace its entries in place and
@@ -107,19 +109,6 @@ def _group_norm(x, scale, H: int):
     return (y.reshape(B, -1) * scale.float()).to(x.dtype)
 
 
-def _wkv_step(S, r, k, v, w, u, H: int, hd: int):
-    """One recurrence step.  r, k, v, w: (B, d); S: (B, H, hd, hd) f32."""
-    B = r.shape[0]
-    rh = r.reshape(B, H, hd).float()
-    kh = k.reshape(B, H, hd).float()
-    vh = v.reshape(B, H, hd).float()
-    wh = w.reshape(B, H, hd)
-    kv = kh[..., :, None] * vh[..., None, :]
-    y = torch.einsum("bhi,bhij->bhj", rh, S + u[None, :, :, None] * kv)
-    S_new = wh[..., :, None] * S + kv
-    return S_new, y.reshape(B, H * hd)
-
-
 def apply_rwkv_seq(cfg, p: TimeMix, x, state) -> Tuple[torch.Tensor, dict]:
     """x: (B, S, d), sequence mode (prefill); the recurrence goes through
     the WKV6 kernel with s0 = state["wkv"]."""
@@ -142,14 +131,18 @@ def apply_rwkv_seq(cfg, p: TimeMix, x, state) -> Tuple[torch.Tensor, dict]:
 
 
 def apply_rwkv_step(cfg, p: TimeMix, x, state) -> Tuple[torch.Tensor, dict]:
-    """x: (B, 1, d), decode mode: one plain O(1) state update."""
+    """x: (B, 1, d), decode mode: one O(1) state update, the WKV6 kernel at
+    T = 1.  r, k, v go in as float32, so y comes out unrounded."""
     B, _, d = x.shape
     hd = cfg.ssm.head_dim
     H = d // hd
     xt = x[:, 0, :]
     r, k, v, g, w = _projections(p, xt, state["shift"].to(x.dtype), x.dtype)
-    S_new, y = _wkv_step(state["wkv"], r, k, v, w, p.bonus_u.float(), H, hd)
-    y = _group_norm(y, p.ln_x_scale, H).to(x.dtype)
+    def head(t):
+        return t.float().reshape(B, 1, H, hd)
+    y, S_new = wkv6(head(r), head(k), head(v), head(w), p.bonus_u.float(),
+                    state["wkv"])
+    y = _group_norm(y.reshape(B, d), p.ln_x_scale, H).to(x.dtype)
     y = y * F.silu(g)
     out = (y @ p.wo.to(x.dtype))[:, None, :]
     state["shift"] = xt.float()

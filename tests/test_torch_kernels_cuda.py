@@ -87,16 +87,9 @@ def _wkv_inputs(B, T, H, hd, dtype, device, seed=0):
             + [t.to(device) for t in (w, u, s0)])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,T,H,hd,dtype", [
-    (2, 1024, 32, 64, torch.bfloat16),   # the prefill of rwkv6_1_6b
-    (1, 333, 4, 64, torch.float32),      # ragged T
-    (2, 1, 32, 64, torch.bfloat16),      # T = 1
-    (2, 37, 4, 16, torch.float32),       # the reduced config's head dim
-    (1, 50, 2, 128, torch.float32),
-])
-def test_wkv6_kernel_matches_plain(card, B, T, H, hd, dtype):
-    args = _wkv_inputs(B, T, H, hd, dtype, card)
+def _wkv_check(args, dtype):
+    """Launches the kernel once on ``args`` and holds y and the state
+    against the plain version on the same (float32) inputs."""
     before = wkv_ops.launches
     y, sT = wkv_ops.wkv6(*args)
     torch.cuda.synchronize()
@@ -108,17 +101,99 @@ def test_wkv6_kernel_matches_plain(card, B, T, H, hd, dtype):
     torch.testing.assert_close(sT, want_s, **WKV_TOL[torch.float32])
 
 
+# The kernel stages 16-step chunks through a ring of 4 chunk buffers (64
+# steps): T around one chunk and around the ring's depth, and ragged.
+WKV_CHUNK, WKV_RING = 16, 64
+
+
 @pytest.mark.cuda
-def test_wkv6_kernel_state_carry_composes(card):
+@pytest.mark.parametrize("B,T,H,hd,dtype", [
+    (2, 1024, 32, 64, torch.bfloat16),   # the prefill of rwkv6_1_6b
+    (1, 333, 4, 64, torch.float32),      # ragged T
+    (2, 1, 32, 64, torch.bfloat16),      # T = 1
+    (2, 37, 4, 16, torch.float32),       # the reduced config's head dim
+    (1, 50, 2, 128, torch.float32),
+    (2, 1, 32, 64, torch.float32),       # the decode step of rwkv6_1_6b
+    (2, 37, 4, 16, torch.bfloat16),
+    (1, 50, 2, 128, torch.bfloat16),
+    (2, 70, 3, 64, torch.float32),
+])
+def test_wkv6_kernel_matches_plain(card, B, T, H, hd, dtype):
+    args = _wkv_inputs(B, T, H, hd, dtype, card)
+    assert wkv_ops.uses_ring(*args) == (T > 1)   # contiguous: aligned
+    _wkv_check(args, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [2, WKV_CHUNK - 1, WKV_CHUNK, WKV_CHUNK + 1,
+                               WKV_RING - 1, WKV_RING, WKV_RING + 1, 333])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wkv6_kernel_around_the_ring(card, T, dtype):
+    _wkv_check(_wkv_inputs(2, T, 4, 64, dtype, card, seed=T), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("pad,ring", [(0, True), (2, False)])
+def test_wkv6_kernel_takes_strided_r(card, dtype, pad, ring):
+    """r as a slice of a wider tensor: of a larger head count (strides stay
+    16-byte aligned: asynchronous copies) or of a padded head dim (they do
+    not: the same kernel with plain copies)."""
+    B, T, H, hd = 2, 77, 4, 64
+    r, k, v, w, u, s0 = _wkv_inputs(B, T, H, hd, dtype, card)
+    wide = torch.zeros((B, T, H + 1, hd + pad), dtype=dtype, device=card)
+    wide[:, :, :H, :hd] = r
+    view = wide[:, :, :H, :hd]
+    assert not view.is_contiguous()
+    args = [view, k, v, w, u, s0]
+    assert wkv_ops.uses_ring(*args) == ring
+    _wkv_check(args, dtype)
+    y_view, s_view = wkv_ops.wkv6(*args)
+    y, sT = wkv_ops.wkv6(r, k, v, w, u, s0)
+    # The two paths run the same arithmetic: bitwise equal.
+    assert torch.equal(y_view, y) and torch.equal(s_view, sT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [128, 77])
+def test_wkv6_kernel_state_carry_composes(card, split):
+    """Two calls with the state carried equal one call bitwise, at a chunk
+    multiple and at a split that is not one."""
     r, k, v, w, u, s0 = _wkv_inputs(2, 256, 4, 64, torch.bfloat16, card)
     y_full, s_full = wkv_ops.wkv6(r, k, v, w, u, s0)
-    y1, s_mid = wkv_ops.wkv6(r[:, :128], k[:, :128], v[:, :128], w[:, :128],
-                             u, s0)
-    y2, s_end = wkv_ops.wkv6(r[:, 128:], k[:, 128:], v[:, 128:], w[:, 128:],
-                             u, s_mid)
+    y1, s_mid = wkv_ops.wkv6(r[:, :split], k[:, :split], v[:, :split],
+                             w[:, :split], u, s0)
+    y2, s_end = wkv_ops.wkv6(r[:, split:], k[:, split:], v[:, split:],
+                             w[:, split:], u, s_mid)
     torch.testing.assert_close(torch.cat([y1, y2], 1), y_full, rtol=0,
                                atol=0)
     torch.testing.assert_close(s_end, s_full, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_is_deterministic(card):
+    args = _wkv_inputs(2, 1024, 32, 64, torch.bfloat16, card, seed=3)
+    y1, s1 = wkv_ops.wkv6(*args)
+    y2, s2 = wkv_ops.wkv6(*args)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_decode_step_matches_the_plain_step(card):
+    """The T = 1 float32 launch that rwkv6_1_6b's decode makes, against the
+    reference's plain step written out, and counted as a T = 1 launch."""
+    B, H, hd = 2, 32, 64
+    r, k, v, w, u, s0 = _wkv_inputs(B, 1, H, hd, torch.float32, card)
+    before = wkv_ops.launches_t1
+    y, sT = wkv_ops.wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert wkv_ops.launches_t1 == before + 1
+    kv = k[:, 0, :, :, None] * v[:, 0, :, None, :]
+    want_y = torch.einsum("bhi,bhij->bhj", r[:, 0], s0 + u[None, :, :, None]
+                          * kv).reshape(B, 1, H * hd)
+    want_s = w[:, 0, :, :, None] * s0 + kv
+    torch.testing.assert_close(y, want_y, **WKV_TOL[torch.float32])
+    torch.testing.assert_close(sT, want_s, **WKV_TOL[torch.float32])
 
 
 @pytest.mark.cuda

@@ -111,6 +111,39 @@ def test_wkv6_ref_matches_jax_ref_in_bh_layout():
     np.testing.assert_allclose(sT.numpy(), np.asarray(jsT), **F32_TOL)
 
 
+def _factored_wkv(r, k, v, w, u, s0):
+    """The CUDA kernel's arithmetic as a plain float32 loop, (BH, T, hd):
+    y_t = r_t^T S + (sum_i r_i u_i k_i) v_t, then S <- diag(w_t) S +
+    k_t v_t^T (three operations per state element, where the reference
+    forms r^T (S + diag(u) k v^T) with four)."""
+    S = s0.clone()
+    ys = []
+    for t in range(r.shape[1]):
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]
+        ru = (rt * u * kt).sum(-1, keepdim=True)
+        ys.append(torch.einsum("bi,bij->bj", rt, S) + ru * vt)
+        S = wt[:, :, None] * S + kt[:, :, None] * vt[:, None, :]
+    return torch.stack(ys, 1), S
+
+
+def test_factored_step_matches_jax_ref_over_hundreds_of_steps():
+    """The kernel's factored step is the reference's recurrence: in float32
+    over 300 steps at rwkv6_1_6b's head dim, within 1e-5."""
+    B, T, H, hd = 1, 300, 2, 64
+    r, k, v, w, u, s0 = _wkv_inputs(B, T, H, hd, seed=5)
+
+    def flat(a):
+        return np.ascontiguousarray(np.swapaxes(a, 1, 2)).reshape(B * H, T,
+                                                                   hd)
+    args = [flat(a) for a in (r, k, v, w)]
+    args += [np.tile(u[None], (B, 1, 1)).reshape(B * H, hd),
+             s0.reshape(B * H, hd, hd)]
+    y, sT = _factored_wkv(*(torch.from_numpy(a) for a in args))
+    jy, jsT = jwkv6_ref(*(jnp.asarray(a) for a in args))
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **F32_TOL)
+    np.testing.assert_allclose(sT.numpy(), np.asarray(jsT), **F32_TOL)
+
+
 def test_wkv6_state_carry_composes():
     """Two half-sequences with the state carried == one full run, as the
     reference's ``test_wkv6_state_carry_composes``."""
@@ -189,6 +222,34 @@ def test_apply_rwkv_seq_and_step_match_jax(dtype):
     for name in ("shift", "wkv"):
         np.testing.assert_allclose(tst[name].numpy(), np.asarray(jst[name]),
                                    **tol)
+
+
+def test_apply_rwkv_step_hands_float32_to_wkv6(monkeypatch):
+    """Decode goes through ``wkv6`` at T = 1 with r, k, v in float32 even
+    with bf16 activations, so y reaches the group norm unrounded as in the
+    reference; the output still matches ``repro``'s decode step."""
+    jcfg, jp, cfg, tm = _time_mix_pair()
+    B = 2
+    x = np.random.RandomState(8).standard_normal(
+        (B, 1, cfg.d_model)).astype(np.float32)
+    jst, tst = _state_pair(cfg, B)
+    seen = []
+
+    def spy(r, k, v, w, u, s0):
+        seen.append((r.dtype, k.dtype, v.dtype, w.dtype, tuple(r.shape)))
+        return ops.wkv6(r, k, v, w, u, s0)
+    monkeypatch.setattr(TR, "wkv6", spy)
+    jy, jst = JR.apply_rwkv_step(jcfg, jp, jnp.asarray(x, jnp.bfloat16), jst)
+    ty, tst = TR.apply_rwkv_step(cfg, tm, torch.from_numpy(x).bfloat16(), tst)
+    hd = cfg.ssm.head_dim
+    assert seen == [(torch.float32,) * 4
+                    + ((B, 1, cfg.d_model // hd, hd),)]
+    assert ty.dtype == torch.bfloat16 and ty.shape == (B, 1, cfg.d_model)
+    np.testing.assert_allclose(ty.float().numpy(), np.asarray(jy, np.float32),
+                               **BF16_TOL)
+    for name in ("shift", "wkv"):
+        np.testing.assert_allclose(tst[name].numpy(), np.asarray(jst[name]),
+                                   **BF16_TOL)
 
 
 def test_apply_channel_mix_matches_jax():
