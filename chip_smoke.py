@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Four phases, each of which raises on failure (nothing is caught):
+Five phases, each of which raises on failure (nothing is caught):
 
 1. build: compiles every CUDA kernel of the port from ``src/repro_torch``
    with ``nvcc`` (one process per source, all at once) into ``build/``,
@@ -24,12 +24,27 @@ Four phases, each of which raises on failure (nothing is caught):
    and full depth (24 layers).  Checks the tokens, the lanes, that every
    recurrence (each prefill, and each decode step at T = 1) went through
    the WKV6 kernel, and the prefill logits against the plain recurrence
-   after 2 to 24 layers, in float32 and bf16.
+   after 2 to 24 layers, in float32 and bf16;
+5. benchsuite: the paper's six workloads (VEC, B&S, IMG, ML, HITS, DL) at
+   their full size (scale 1.0), data made from seed 0, each run through the
+   scheduler under the serial and then the parallel policy on CUDA-stream
+   lanes (a warm run each, then timed runs in the order serial, parallel,
+   parallel, serial).  Holds every result against the port's
+   ``run_reference`` on the card, serial against parallel, and VEC and B&S
+   against float64 closed forms; prints what one upload costs on the host
+   and, per workload, the walls, the speedup, the lanes, the overlap
+   metrics, the peak device memory and the port's simulated speedup on the
+   paper's three GPUs, then the geomean of the measured speedups beside the
+   paper's 1.44.  A parallel run on one lane fails; a slow one does not.
 
 Each serving phase sets every kernel's launch count to 0 just before it
 serves and reads the counts just after.  ``--profile`` adds, to each
 serving phase, two warm runs, the second under ``torch.profiler``, and runs
-under the serial policy.
+under the serial policy; to each benchsuite workload, one more parallel run
+under ``torch.profiler``, from whose trace it prints the device's busy and
+idle share, the streams that ran kernels (fewer than two fails), the share
+of kernel time with kernels on two streams or more, and the share of
+host-to-device copy time that overlapped a kernel.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` JSON line
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -733,6 +748,274 @@ def phase_rwkv(card: str, profile: bool = False) -> dict:
     return launches
 
 
+# The benchsuite phase: full size, iterations per run (the same for every
+# workload), and the simulator's settings of benchmarks/bench_speedup.py.
+BENCH_SCALE = 1.0
+BENCH_ITERS = 4
+SIM_SCALE, SIM_ITERS = 0.05, 6
+PAPER_GEOMEAN = 1.44
+# Serial against parallel and against run_reference: the same kernels on
+# the same card, so equal but for HITS's atomic sums (tests/test_benchsuite.py
+# holds serial against parallel alike).
+BENCH_TOL = dict(rtol=1e-5, atol=1e-6)
+# VEC's float32 sums against float64: 1e-6 of the sum of the magnitudes
+# summed.  B&S in float64 against scipy's float64 formula.
+VEC_CLOSED_RTOL = 1e-6
+BS_CLOSED_TOL = dict(rtol=1e-10, atol=1e-10)
+
+
+def hold(what: str, got: dict, want: dict, rtol: float, atol: float) -> float:
+    """Max abs difference of every array of ``got`` against ``want``;
+    raises past ``atol + rtol * |want|`` or on a value that is not
+    finite."""
+    import numpy as np
+    worst = 0.0
+    for k, ref in want.items():
+        # float arrays keep their type (a float32 difference of two close
+        # float32 values is exact); integers are compared as float64
+        g, r = np.asarray(got[k]), np.asarray(ref)
+        if g.dtype.kind != "f" or r.dtype.kind != "f":
+            g, r = g.astype(np.float64), r.astype(np.float64)
+        if g.shape != r.shape or not np.isfinite(g).all():
+            raise AssertionError(f"{what} {k}: shape {g.shape} (want "
+                                 f"{r.shape}) or a value not finite")
+        err = np.abs(g - r)
+        bad = int((err > atol + rtol * np.abs(r)).sum())
+        worst = max(worst, float(err.max()) if err.size else 0.0)
+        if bad:
+            raise AssertionError(f"{what} {k}: {bad} elements out of "
+                                 f"tolerance (rtol {rtol}, atol {atol})")
+    return worst
+
+
+def run_workload(bench, data, policy: str) -> dict:
+    """One run of ``bench`` through a fresh scheduler on CUDA lanes: its
+    results, the wall (host clock, ending in a device synchronize), the
+    lanes, the overlap metrics, the peak device memory, and the count and
+    summed host-clock time of its upload and kernel elements."""
+    import torch
+    from repro_torch.core import make_scheduler
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    s = make_scheduler(policy, device="cuda")
+    try:
+        t0 = time.perf_counter()
+        out = bench.build(s, data, gpu=None, iters=BENCH_ITERS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        spans = {k: [sp.t1 - sp.t0 for sp in s.timeline.spans
+                     if sp.kind == k] for k in ("h2d", "compute")}
+        return dict(out=out, wall=wall, lanes=s.stats()["lanes_created"],
+                    overlap=s.timeline.overlap_metrics(),
+                    peak=torch.cuda.max_memory_allocated(),
+                    elements={k: [len(v), sum(v)] for k, v in spans.items()})
+    finally:
+        s.close()
+
+
+def upload_cost(card: str) -> None:
+    """What one upload of VEC's size (25 M float32, 95.4 MiB) costs, three
+    times over: from pageable memory (host clock, synchronized); the
+    executor's staged path, its host copy into pinned memory (host clock)
+    and its DMA (CUDA events); and the executor's whole call until it
+    returns and until the copy has finished."""
+    import numpy as np
+    import torch
+    from repro_torch.core.executor import _to_device
+    x = np.random.RandomState(0).rand(25_000_000).astype(np.float32)
+    dev = torch.device("cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    out = {k: [] for k in ("pageable_ms", "pin_copy_ms", "dma_ms",
+                           "staged_return_ms", "staged_done_ms")}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.from_numpy(x).to(dev, non_blocking=True)
+        torch.cuda.synchronize()
+        out["pageable_ms"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        pinned = torch.from_numpy(x).pin_memory()
+        out["pin_copy_ms"].append((time.perf_counter() - t0) * 1e3)
+        start.record()
+        pinned.to(dev, non_blocking=True)
+        end.record()
+        end.synchronize()
+        out["dma_ms"].append(start.elapsed_time(end))
+        t0 = time.perf_counter()
+        y = _to_device(x, dev)
+        out["staged_return_ms"].append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        out["staged_done_ms"].append((time.perf_counter() - t0) * 1e3)
+        if not torch.equal(y.cpu(), torch.from_numpy(x)):
+            raise AssertionError("the staged upload changed the data")
+    print(f"[bench] one 95.4 MiB upload, three times: "
+          f"{json.dumps(out)} ({card})")
+
+
+def simulated_speedups(bench) -> dict:
+    """Serial over parallel makespan on the port's simulator for the
+    paper's three GPUs, as ``benchmarks/bench_speedup.py`` computes it."""
+    from repro_torch.benchsuite import GPUS
+    from repro_torch.benchsuite.costmodel import sim_hardware
+    from repro_torch.core import make_scheduler
+    data = bench.make_data(SIM_SCALE)
+    out = {}
+    for gname, gpu in GPUS.items():
+        t = {}
+        for policy in ("serial", "parallel"):
+            s = make_scheduler(policy, simulate=True,
+                               hw=sim_hardware(gpu, policy))
+            bench.build(s, data, gpu=gpu, iters=SIM_ITERS)
+            t[policy] = s.timeline.makespan
+            s.close()
+        out[gname] = t["serial"] / t["parallel"]
+    return out
+
+
+def trace_stats(trace_path: str, wall_s: float) -> dict:
+    """Device activity of one ``torch.profiler`` chrome trace: busy and
+    idle share of the wall, the streams that ran kernels, the share of
+    kernel time with kernels on two streams or more at once, and the share
+    of host-to-device copy time that overlapped a kernel."""
+    from repro_torch.core.timeline import (_intersect, _k_overlap, _measure,
+                                           _union)
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels, h2d, other, pageable = {}, [], [], 0
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        span = (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+        cat = e.get("cat", "")
+        if cat == "kernel":
+            kernels.setdefault(e["args"]["stream"], []).append(span)
+        elif cat == "gpu_memcpy" and "HtoD" in e["name"]:
+            h2d.append(span)
+            pageable += "Pageable" in e["name"]
+        elif cat in ("gpu_memcpy", "gpu_memset"):
+            other.append(span)
+    per_stream = [s for v in kernels.values() for s in _union(v)]
+    u_kern = _union(per_stream)
+    u_h2d = _union(h2d)
+    busy_us = _measure(_union(per_stream + h2d + other))
+    t_kern, t_h2d = _measure(u_kern), _measure(u_h2d)
+    return dict(
+        busy_share=busy_us / 1e6 / wall_s,
+        idle_share=1 - busy_us / 1e6 / wall_s,
+        kernel_streams=len(kernels),
+        kernels=sum(len(v) for v in kernels.values()),
+        multi_stream_kernel_share=(_measure(_k_overlap(per_stream, 2))
+                                   / t_kern if t_kern else 0.0),
+        h2d_copies=len(h2d), h2d_pageable=pageable, h2d_ms=t_h2d / 1e3,
+        h2d_overlapping_kernel_share=(_measure(_intersect(u_h2d, u_kern))
+                                      / t_h2d if t_h2d else 0.0))
+
+
+def profile_workload(name: str, bench, data, card: str) -> None:
+    """One more parallel run under ``torch.profiler``; its trace goes to
+    ``build/profile/``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run = run_workload(bench, data, "parallel")
+    out_dir = os.path.join(ROOT, "build", "profile")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"bench_{name.replace('&', '')}.json")
+    prof.export_chrome_trace(path)
+    st = trace_stats(path, run["wall"])
+    print(f"[profile bench {name}] parallel run under the profiler: wall "
+          f"{run['wall']:.4f} s, {json.dumps(st)}, upload elements "
+          f"{run['elements']['h2d'][0]} ({card})")
+    if st["kernel_streams"] < 2:
+        raise AssertionError(f"{name}: every kernel of the parallel run ran "
+                             f"on one stream")
+
+
+def phase_benchsuite(card: str, profile: bool = False) -> None:
+    import numpy as np
+    import torch
+    from repro_torch.benchsuite import BENCHMARKS, GPUS
+
+    t_phase = time.perf_counter()
+    upload_cost(card)
+    speedups, sims = {}, {}
+    for name, bench in BENCHMARKS.items():
+        t0 = time.perf_counter()
+        data = bench.make_data(BENCH_SCALE, seed=0)
+        t_data = time.perf_counter() - t0
+        ref = bench.run_reference(data, iters=BENCH_ITERS, device="cuda")
+        for policy in ("serial", "parallel"):
+            run_workload(bench, data, policy)               # warm
+        # Timed in the order serial, parallel, parallel, serial: the walls
+        # of one policy spread by up to 4x from run to run (the host's
+        # copies into pinned memory, and pinned blocks the caching host
+        # allocator adds when more uploads are in flight than before).
+        runs = {"serial": [], "parallel": []}
+        for policy in ("serial", "parallel", "parallel", "serial"):
+            runs[policy].append(run_workload(bench, data, policy))
+        (ser, ser2), (par, par2) = runs["serial"], runs["parallel"]
+        walls = {k: [r["wall"] for r in v] for k, v in runs.items()}
+        errs = {f"{k}_vs_reference": max(
+            hold(f"{name} {k} vs run_reference", r["out"], ref, **BENCH_TOL)
+            for r in v) for k, v in runs.items()}
+        errs["parallel_vs_serial"] = max(
+            hold(f"{name} parallel vs serial", p["out"], q["out"],
+                 **BENCH_TOL) for p, q in ((par, ser), (par2, ser2)))
+        if name == "VEC":
+            exact = bench.closed_form(data, iters=BENCH_ITERS)
+            scale = np.sum(np.abs(data["x1"].astype(np.float64) ** 2
+                                  - data["x2"].astype(np.float64) ** 2))
+            errs["vs_float64_closed_form"] = hold(
+                f"{name} vs float64", par["out"], exact, 0.0,
+                VEC_CLOSED_RTOL * scale)
+        elif name == "B&S":
+            errs["vs_float64_closed_form"] = hold(
+                f"{name} vs float64", par["out"],
+                bench.closed_form(data, iters=BENCH_ITERS), **BS_CLOSED_TOL)
+        if par["lanes"] < 2:
+            raise AssertionError(f"{name}: the parallel run used "
+                                 f"{par['lanes']} lane(s)")
+        sims[name] = simulated_speedups(bench)
+        speedups[name] = (sum(walls["serial"]) / sum(walls["parallel"]))
+        nbytes = sum(v.nbytes for v in data.values())
+        print(f"[bench {name}] scale {BENCH_SCALE}, {BENCH_ITERS} "
+              f"iterations, data {nbytes / 2**20:.1f} MiB made in "
+              f"{t_data:.2f} s: serial {json.dumps(walls['serial'])} s, "
+              f"parallel {json.dumps(walls['parallel'])} s, speedup (of the "
+              f"means) {speedups[name]:.4f}, lanes {par['lanes']}, peak "
+              f"device memory {par['peak'] / 2**30:.3f} GiB (serial "
+              f"{ser['peak'] / 2**30:.3f}) ({card})")
+        print(f"[bench {name}] overlap_metrics parallel "
+              f"{json.dumps(par['overlap'])}, serial "
+              f"{json.dumps(ser['overlap'])}")
+        print(f"[bench {name}] elements [count, summed host-clock s]: "
+              f"parallel {json.dumps(par['elements'])}, serial "
+              f"{json.dumps(ser['elements'])}")
+        print(f"[bench {name}] max abs err {json.dumps(errs)}")
+        print(f"[bench {name}] simulated speedup (port's simulator, scale "
+              f"{SIM_SCALE}, {SIM_ITERS} iterations; not the card) "
+              f"{json.dumps(sims[name])}")
+        if profile:
+            profile_workload(name, bench, data, card)
+        if speedups[name] < 1.0:
+            print(f"[bench {name}] finding: the parallel policy is slower "
+                  f"than the serial one on this card")
+        del data, ref, runs, ser, ser2, par, par2
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def geomean(vals):
+        return float(np.exp(np.mean(np.log(np.asarray(vals)))))
+    sim_gm = {g: geomean([v[g] for v in sims.values()]) for g in GPUS}
+    print(f"[bench] geomean speedup of the six workloads on this card "
+          f"{geomean(list(speedups.values())):.4f} (paper: {PAPER_GEOMEAN} "
+          f"on its GPUs); simulated geomean {json.dumps(sim_gm)}, overall "
+          f"{geomean(list(sim_gm.values())):.4f} ({card})")
+    print(f"[bench] phase {time.perf_counter() - t_phase:.2f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -758,6 +1041,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     rwkv = phase_rwkv(card, profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_benchsuite(card, profile)
     for row in rows:
         row["launches"] = (rwkv if row["name"] == "wkv6" else launches)[
             row["name"]]

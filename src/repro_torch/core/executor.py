@@ -7,8 +7,9 @@ Two implementations behind one interface:
   independent).  Cross-lane dependencies wait on per-element events — the
   CUDA-event analogue; the host is never blocked by device work (§IV-B).
   Kernels are PyTorch callables.  On ``cuda`` each lane worker owns one
-  ``torch.cuda.Stream`` and issues its elements there; transfers are
-  ``tensor.to(device, non_blocking=True)`` on that stream.
+  ``torch.cuda.Stream`` and issues its elements there; host-to-device
+  transfers are staged through pinned memory and issued with
+  ``non_blocking=True`` on that stream, so they overlap other lanes' work.
 
 * ``SimExecutor`` — a discrete-event simulator that replays the *same* DAG +
   lane assignment under a calibrated hardware model: processor-sharing
@@ -30,7 +31,7 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
-from .element import ComputationalElement, ElementKind, ElementState
+from .element import AccessMode, ComputationalElement, ElementKind, ElementState
 from .history import KernelHistory
 from .timeline import Timeline
 
@@ -117,15 +118,39 @@ class Executor:
 # ======================================================================
 
 def _to_device(x, dev: torch.device):
-    """Commit one value to the lane's device: host arrays are uploaded
-    (a never-uploaded ``out`` argument arrives as its host numpy buffer —
-    jit converted it implicitly), tensors elsewhere are copied, anything
-    else (a model, a dict of caches) passes through unchanged."""
+    """Commit one value to the lane's device: host arrays are uploaded,
+    tensors elsewhere are copied, anything else (a model, a dict of caches)
+    passes through unchanged.
+
+    On CUDA a host array is first copied into pinned memory from PyTorch's
+    caching host allocator, then uploaded with ``non_blocking=True``: from
+    pageable memory the copy would hold the lane's thread for the whole
+    transfer.  The allocator records the lane's stream on the pinned block
+    and reuses it only once the upload has finished, so the pinned pool
+    stays about as large as the uploads in flight; host mirrors themselves
+    stay pageable."""
     if isinstance(x, np.ndarray):
-        return torch.from_numpy(x).to(dev, non_blocking=True)
+        t = torch.from_numpy(x)
+        if dev.type == "cuda":
+            t = t.pin_memory()
+        return t.to(dev, non_blocking=True)
     if isinstance(x, torch.Tensor) and x.device != dev:
         return x.to(dev, non_blocking=True)
     return x
+
+
+def _arg_value(arg, dev: torch.device):
+    """The value a kernel receives for one argument.  An ``out`` argument
+    that has never been on a device gets a fresh uninitialized tensor of
+    its shape and dtype: the kernel only writes it, so uploading its host
+    buffer would move dead bytes.  Every other argument is committed to
+    the lane's device (a no-op for values already resident)."""
+    ma = arg.array
+    if (arg.mode is AccessMode.OUT and ma.device is None
+            and isinstance(ma.host, np.ndarray)):
+        dtype = torch.from_numpy(np.empty(0, ma.host.dtype)).dtype
+        return torch.empty(ma.host.shape, dtype=dtype, device=dev)
+    return _to_device(ma.device_value(), dev)
 
 
 def _run_device_element(e: ComputationalElement, dev: torch.device):
@@ -175,9 +200,7 @@ def _run_device_element(e: ComputationalElement, dev: torch.device):
             _to_device(np.asarray(e.tier.reload(ma)), dev))
         return
 
-    # Commit every input to the lane's device so the kernel runs there
-    # (a no-op for values already resident).
-    inputs = [_to_device(a.array.device_value(), dev) for a in e.args]
+    inputs = [_arg_value(a, dev) for a in e.args]
     result = e.fn(*inputs)
     writable = [a.array for a in e.args if a.mode.writes]
     if writable:
