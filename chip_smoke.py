@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Five phases, each of which raises on failure (nothing is caught):
+Six phases, each of which raises on failure (nothing is caught):
 
 1. build: compiles every CUDA kernel of the port from ``src/repro_torch``
    with ``nvcc`` (one process per source, all at once) into ``build/``,
@@ -35,7 +35,23 @@ Five phases, each of which raises on failure (nothing is caught):
    and, per workload, the walls, the speedup, the lanes, the overlap
    metrics, the peak device memory and the port's simulated speedup on the
    paper's three GPUs, then the geomean of the measured speedups beside the
-   paper's 1.44.  A parallel run on one lane fails; a slow one does not.
+   paper's 1.44.  A parallel run on one lane fails; a slow one does not;
+6. analysis: the access-mode checker over the port's shipped declarations
+   (no issue; the IMG filter cache cleared first, and a blur and a Sobel
+   run on the card after it); each workload of phase 5, on phase 5's data,
+   under the parallel policy with ``sanitize=True`` (a warm run, then two
+   timed runs and two with the const canary off), held equal to phase
+   5's parallel runs, with no race and every issued element checked, the
+   walls beside the unsanitized ones (the sanitizer's overhead; with
+   ``--profile`` also one sanitized run under the profiler); the digest
+   of a const operand of VEC's and of ML's size timed on the card and
+   held equal to the host's digest of the same bytes; seeded faults on
+   the card (a kernel writing its ``const`` operand in
+   place, two writers of one array on two lanes), each of which must
+   raise; VEC and B&S captured and replayed under ``sanitize=True`` with
+   ``verify()``, and an out-of-core capture rewritten by the plan
+   optimizer under ``sanitize=True``; bf16 managed arrays moved host to
+   device to host bit for bit.
 
 Each serving phase sets every kernel's launch count to 0 just before it
 serves and reads the counts just after.  ``--profile`` adds, to each
@@ -788,28 +804,39 @@ def hold(what: str, got: dict, want: dict, rtol: float, atol: float) -> float:
     return worst
 
 
-def run_workload(bench, data, policy: str) -> dict:
+def run_workload(bench, data, policy: str, sanitize: bool = False,
+                 canary: bool = True) -> dict:
     """One run of ``bench`` through a fresh scheduler on CUDA lanes: its
     results, the wall (host clock, ending in a device synchronize), the
-    lanes, the overlap metrics, the peak device memory, and the count and
-    summed host-clock time of its upload and kernel elements."""
+    lanes, the overlap metrics, the peak device memory, the count and
+    summed host-clock time of its upload and kernel elements, the elements
+    the lanes ran and the scheduler's stats after a ``sync``.  With
+    ``sanitize`` and not ``canary`` the sanitizer tracks versions only
+    (its const canary off), to tell the two costs apart."""
     import torch
     from repro_torch.core import make_scheduler
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    s = make_scheduler(policy, device="cuda")
+    s = make_scheduler(policy, device="cuda", sanitize=sanitize)
+    if sanitize:
+        s.sanitizer.checksums = canary
     try:
         t0 = time.perf_counter()
         out = bench.build(s, data, gpu=None, iters=BENCH_ITERS)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        s.sync()
         spans = {k: [sp.t1 - sp.t0 for sp in s.timeline.spans
                      if sp.kind == k] for k in ("h2d", "compute")}
-        return dict(out=out, wall=wall, lanes=s.stats()["lanes_created"],
+        stats = s.stats()
+        return dict(out=out, wall=wall, lanes=stats["lanes_created"],
                     overlap=s.timeline.overlap_metrics(),
                     peak=torch.cuda.max_memory_allocated(),
-                    elements={k: [len(v), sum(v)] for k, v in spans.items()})
+                    elements={k: [len(v), sum(v)] for k, v in spans.items()},
+                    issued=sum(sp.lane is not None
+                               for sp in s.timeline.spans),
+                    stats=stats)
     finally:
         s.close()
 
@@ -913,19 +940,23 @@ def trace_stats(trace_path: str, wall_s: float) -> dict:
                                       / t_h2d if t_h2d else 0.0))
 
 
-def profile_workload(name: str, bench, data, card: str) -> None:
+def profile_workload(name: str, bench, data, card: str,
+                     sanitize: bool = False) -> None:
     """One more parallel run under ``torch.profiler``; its trace goes to
     ``build/profile/``."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run = run_workload(bench, data, "parallel")
+        run = run_workload(bench, data, "parallel", sanitize=sanitize)
     out_dir = os.path.join(ROOT, "build", "profile")
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"bench_{name.replace('&', '')}.json")
+    tag = "sanitized_" if sanitize else ""
+    path = os.path.join(out_dir,
+                        f"bench_{tag}{name.replace('&', '')}.json")
     prof.export_chrome_trace(path)
     st = trace_stats(path, run["wall"])
-    print(f"[profile bench {name}] parallel run under the profiler: wall "
+    print(f"[profile bench {name}] parallel run{' sanitized' * sanitize} "
+          f"under the profiler: wall "
           f"{run['wall']:.4f} s, {json.dumps(st)}, upload elements "
           f"{run['elements']['h2d'][0]} ({card})")
     if st["kernel_streams"] < 2:
@@ -933,14 +964,16 @@ def profile_workload(name: str, bench, data, card: str) -> None:
                              f"on one stream")
 
 
-def phase_benchsuite(card: str, profile: bool = False) -> None:
+def phase_benchsuite(card: str, profile: bool = False) -> dict:
+    """Phase 5, and phase 6's sanitized run of each workload on its data;
+    returns the sanitizer's wall ratios per workload."""
     import numpy as np
     import torch
     from repro_torch.benchsuite import BENCHMARKS, GPUS
 
     t_phase = time.perf_counter()
     upload_cost(card)
-    speedups, sims = {}, {}
+    speedups, sims, overheads = {}, {}, {}
     for name, bench in BENCHMARKS.items():
         t0 = time.perf_counter()
         data = bench.make_data(BENCH_SCALE, seed=0)
@@ -1002,6 +1035,8 @@ def phase_benchsuite(card: str, profile: bool = False) -> None:
         if speedups[name] < 1.0:
             print(f"[bench {name}] finding: the parallel policy is slower "
                   f"than the serial one on this card")
+        overheads[name] = sanitized_run(name, bench, data, (par, par2), card,
+                                        profile)
         del data, ref, runs, ser, ser2, par, par2
         gc.collect()
         torch.cuda.empty_cache()
@@ -1014,6 +1049,330 @@ def phase_benchsuite(card: str, profile: bool = False) -> None:
           f"on its GPUs); simulated geomean {json.dumps(sim_gm)}, overall "
           f"{geomean(list(sim_gm.values())):.4f} ({card})")
     print(f"[bench] phase {time.perf_counter() - t_phase:.2f} s")
+    return overheads
+
+
+# The analysis phase.  The sanitized runs hold phase 5's tolerance; the
+# plans run at a small scale of their own.
+PLAN_SCALE = 0.01
+# VEC's inputs (25 M float32) and ML's const input (1.2 M x 200 float32),
+# the largest operand the canary digests in phase 5's workloads.
+DIGEST_SHAPES = ((25_000_000,), (1_200_000, 200))
+
+
+def sanitized_run(name: str, bench, data, plain, card: str,
+                  profile: bool = False) -> dict:
+    """Parallel runs of ``bench`` with ``sanitize=True`` on phase 5's data:
+    a warm one, then timed in the order sanitized, versions only (the
+    const canary off), versions only, sanitized.  Each run's results equal
+    phase 5's parallel runs, with no race and every element the lanes ran
+    checked.  Prints the walls; returns each kind's mean wall over the
+    mean of phase 5's parallel walls."""
+    run_workload(bench, data, "parallel", sanitize=True)          # warm
+    runs = {"sanitized": [], "versions only": []}
+    for kind in ("sanitized", "versions only", "versions only",
+                 "sanitized"):
+        runs[kind].append(run_workload(bench, data, "parallel",
+                                       sanitize=True,
+                                       canary=kind == "sanitized"))
+    err = 0.0
+    for kind, rs in runs.items():
+        for r in rs:
+            st = r["stats"]
+            err = max(err, hold(f"{name} {kind} vs unsanitized", r["out"],
+                                plain[0]["out"], **BENCH_TOL))
+            if st["sanitizer_races_detected"]:
+                raise AssertionError(f"{name}: the sanitizer saw "
+                                     f"{st['sanitizer_races_detected']} "
+                                     f"races")
+            if st["sanitizer_elements_checked"] != r["issued"]:
+                raise AssertionError(
+                    f"{name}: the sanitizer checked "
+                    f"{st['sanitizer_elements_checked']} elements, the "
+                    f"lanes ran {r['issued']}")
+    base = [p["wall"] for p in plain]
+    walls = {k: [r["wall"] for r in rs] for k, rs in runs.items()}
+    ratios = {k: (sum(v) / len(v)) / (sum(base) / len(base))
+              for k, v in walls.items()}
+    san = runs["sanitized"][0]
+    digests = san["stats"]["sanitizer_digests"]
+    per_digest_ms = (sum(walls["sanitized"]) - sum(walls["versions only"])
+                     ) / len(walls["sanitized"]) / digests * 1e3
+    print(f"[analysis {name}] parallel walls: sanitized "
+          f"{json.dumps(walls['sanitized'])} s, versions only "
+          f"{json.dumps(walls['versions only'])} s, unsanitized "
+          f"{json.dumps(base)} s (phase 5); over unsanitized "
+          f"{json.dumps(ratios)}; {san['issued']} elements checked and "
+          f"{digests} const digests a run, sanitized minus versions only "
+          f"{per_digest_ms:.3f} ms a digest; 0 races, max abs err "
+          f"{err:.3g}, peak device memory {san['peak'] / 2**30:.3f} GiB "
+          f"({card})")
+    print(f"[analysis {name}] elements [count, summed host-clock s]: "
+          f"sanitized {json.dumps(san['elements'])}, versions only "
+          f"{json.dumps(runs['versions only'][0]['elements'])}, "
+          f"unsanitized {json.dumps(plain[0]['elements'])}")
+    if profile:
+        profile_workload(name, bench, data, card, sanitize=True)
+    return ratios
+
+
+def lint_then_run(card: str) -> None:
+    """The mode checker over the shipped declarations, then IMG's blur and
+    Sobel on the card: a filter cache the trace left a fake or meta tensor
+    in, under a real device, would fail them."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.analysis.cli import _LINT_MODULES
+    from repro_torch.analysis.modes import lint_functions
+    from repro_torch.benchsuite import kernels as K
+    for mod in _LINT_MODULES:
+        importlib.import_module(mod)
+    K._FILTERS.clear()
+    t0 = time.perf_counter()
+    reports = lint_functions()
+    lint_s = time.perf_counter() - t0
+    issues = [str(i) for r in reports for i in r.issues]
+    skipped = sum(r.skipped is not None for r in reports)
+    print(f"[analysis] lint: {len(reports)} declarations, "
+          f"{len(reports) - skipped} analysed, {skipped} skipped, "
+          f"{len(issues)} issues, {lint_s:.2f} s")
+    if issues or len(reports) - skipped < 20:
+        raise AssertionError(f"lint: {issues or 'too few analysed'}")
+    from torch._subclasses.fake_tensor import FakeTensor
+    poisoned = sorted(str(k) for k, w in K._FILTERS.items()
+                      if k[1].type == "cuda" or w.device != k[1]
+                      or isinstance(w, FakeTensor))
+    if poisoned:
+        raise AssertionError(f"the lint left filters under {poisoned}")
+    gen = torch.Generator("cuda").manual_seed(0)
+    img = torch.rand(2048, 2048, device="cuda", generator=gen)
+
+    def conv(k):
+        k = torch.from_numpy(k).to("cuda")
+        return F.conv2d(img[None, None], k[None, None], padding="same")[0, 0]
+    blur = K.BLUR_L.fn(img, None)
+    ex, ey = conv(K._sobel_x()), conv(K._sobel_x().T.copy())
+    g = torch.sqrt(ex * ex + ey * ey)
+    for what, got, want in (
+            ("BLUR_L", blur, conv(K._gauss_kernel(13, 5.0))),
+            ("SOBEL", K.SOBEL.fn(img, None), g / (torch.max(g) + 1e-6))):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what} after the lint differs from the "
+                                 f"same convolution made afresh")
+    print("[analysis] BLUR_L and SOBEL after the lint: equal to the same "
+          "convolutions made afresh, on the card")
+
+
+def digest_cost(card: str) -> None:
+    """One digest of a const operand of VEC's and of ML's size on the
+    card: CUDA-event time, host time until the result is on the host, and
+    the temporary device memory it takes; the host's digest of the same
+    bytes must be equal."""
+    import torch
+    from repro_torch.analysis.sanitizer import _Digester, digest, resolve
+    d = _Digester()
+    for shape in DIGEST_SHAPES:
+        t = torch.rand(shape, device="cuda")
+        resolve(d.pending(t, "warm"))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        dev_ms, host_ms = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            start.record()
+            pending = d.pending(t, "timed")
+            end.record()
+            resolve(pending)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            dev_ms.append(start.elapsed_time(end))
+        extra = (torch.cuda.max_memory_allocated() - base) / 2**20
+        if resolve(d.pending(t, "card")) != digest(t.cpu().numpy()):
+            raise AssertionError("the card's and the host's digests of "
+                                 "equal bytes differ")
+        nbytes = t.numel() * 4
+        print(f"[analysis] digest of a {nbytes / 2**20:.0f} MiB float32 "
+              f"operand: device {json.dumps(dev_ms)} ms "
+              f"({nbytes / min(dev_ms) / 1e6:.0f} GB/s of operand), host "
+              f"until resolved {json.dumps(host_ms)} ms, temporary device "
+              f"memory {extra:.1f} MiB ({card})")
+        del t
+
+
+def seeded_faults(card: str) -> None:
+    """A kernel that writes its ``const`` CUDA operand in place, and two
+    writers of one array submitted on two lanes with no edge between
+    them: the sanitizer must raise for each."""
+    import threading
+
+    import numpy as np
+    import torch
+    from repro_torch.analysis import SanitizerError
+    from repro_torch.core import function, make_scheduler, out
+    from repro_torch.core.element import ComputationalElement
+
+    def expect(what: str, needle: str, fn) -> None:
+        try:
+            fn()
+        except SanitizerError as exc:
+            if needle not in str(exc):
+                raise
+            print(f"[analysis] seeded {what}: SanitizerError "
+                  f"{str(exc)[:110]!r}...")
+            return
+        raise AssertionError(f"seeded {what}: no SanitizerError")
+
+    n = (1 << 24) + 5                 # two digest chunks
+    s = make_scheduler("parallel", device="cuda", sanitize=True)
+    try:
+        x = s.array(np.ones(n, np.float32), name="cx")
+        y = s.array(shape=(n,), dtype=np.float32, name="cy")
+
+        def mutates(a, _o):
+            a.add_(1.0)
+            return a * 2.0
+        function(mutates, modes=("const", "out"), name="bad_mutates",
+                 scheduler=s)(x, y)
+        expect("write through const", "write through const on array 'cx'",
+               s.sync)
+    finally:
+        s.close()
+
+    s = make_scheduler("parallel", device="cuda", sanitize=True)
+    try:
+        a = s.array(np.ones(1 << 20, np.float32), name="ra")
+        started = threading.Event()
+
+        def slow(_o):
+            started.set()
+            torch.cuda._sleep(200_000_000)
+            return torch.zeros(1 << 20, device="cuda")
+        e1 = ComputationalElement(fn=slow, args=(out(a),), name="W1")
+        e2 = ComputationalElement(
+            fn=lambda _o: torch.ones(1 << 20, device="cuda"),
+            args=(out(a),), name="W2")
+        s.executor.submit(e1, 0, ())
+        if not started.wait(60.0):
+            raise AssertionError("the first writer never started")
+        s.executor.submit(e2, 1, ())
+        expect("two writers on two lanes", "WAW",
+               lambda: s.executor.wait(e2))
+        s.executor.wait(e1)
+    finally:
+        s.close()
+
+
+def plans_on_card(card: str) -> None:
+    """VEC and B&S captured and replayed under ``sanitize=True`` (each plan
+    verified at capture time), ``verify()`` after; an out-of-core capture
+    under a memory budget, which the plan optimizer rewrites and verifies
+    under ``sanitize=True``."""
+    from repro_torch.benchsuite import (BENCHMARKS, build_outofcore,
+                                        verify_outofcore, working_set_bytes)
+    from repro_torch.core import make_scheduler
+    for name in ("VEC", "B&S"):
+        bench = BENCHMARKS[name]
+        data = bench.make_data(PLAN_SCALE, seed=0)
+        ref = bench.run_reference(data, iters=1, device="cuda")
+        s = make_scheduler("parallel", device="cuda", sanitize=True)
+        try:
+            for ep in range(2):
+                with s.capture(name):
+                    res = bench.build(s, data, gpu=None, iters=1)
+                s.sync()
+                hold(f"{name} plan episode {ep}", res, ref, **BENCH_TOL)
+            s.verify()
+            st = s.stats()
+        finally:
+            s.close()
+        if (st["plan_records"], st["plan_replays"]) != (1, 1) \
+                or st["sanitizer_races_detected"]:
+            raise AssertionError(f"{name}: {st['plan_records']} records, "
+                                 f"{st['plan_replays']} replays, "
+                                 f"{st['sanitizer_races_detected']} races")
+        print(f"[analysis] {name} (scale {PLAN_SCALE}): recorded, replayed, "
+              f"verify() green, {st['sanitizer_elements_checked']} elements "
+              f"sanitized, 0 races")
+    chunks, n = 6, 1 << 20
+    s = make_scheduler("parallel", device="cuda", sanitize=True,
+                       plan_optimize=True,
+                       memory_budget=working_set_bytes(chunks, n) // 2)
+    try:
+        for _ in range(3):
+            with s.capture("ooc"):
+                arrs = build_outofcore(s, chunks=chunks, n=n)
+            s.sync()
+        plan = s.plan_cache.candidates("ooc")[0]
+        ok = verify_outofcore(arrs)
+        s.verify()
+        st = s.stats()
+    finally:
+        s.close()
+    if not (plan.optimized and plan.mem_scheduled and ok) \
+            or st["plan_replays"] != 2 or st["sanitizer_races_detected"]:
+        raise AssertionError(
+            f"out-of-core plan: optimized {plan.optimized}, mem_scheduled "
+            f"{plan.mem_scheduled}, results {ok}, {st['plan_replays']} "
+            f"replays, {st['sanitizer_races_detected']} races")
+    print(f"[analysis] out-of-core capture under a budget: rewritten by the "
+          f"plan optimizer and verified, 2 replays, "
+          f"{st['mem_evicts_scheduled']} evictions scheduled, results right")
+
+
+def bf16_round_trip(card: str) -> None:
+    """A bf16 host array (``ml_dtypes.bfloat16``) up to the card and back
+    through a kernel that rewrites it, and a kernel's bf16 ``out`` argument
+    read on the host: every bit kept."""
+    import ml_dtypes
+    import numpy as np
+    import torch
+    from repro_torch.core import function, make_scheduler
+    n = (1 << 20) + 3
+    bits = np.random.RandomState(0).randint(0, 1 << 15, size=n).astype(
+        np.uint16)                                    # finite, positive
+    s = make_scheduler("parallel", device="cuda")
+    try:
+        x = s.array(bits.view(ml_dtypes.bfloat16), name="bx")
+        y = s.array(shape=(n,), dtype=ml_dtypes.bfloat16, name="by")
+        seen = {}
+
+        def dbl(a, _o):
+            seen["in"], seen["out"] = a, (a * 2).to(torch.bfloat16)
+            return seen["out"]
+        function(dbl, modes=("const", "out"), name="dbl", scheduler=s)(x, y)
+        function(lambda a: a.clone(), modes=("inout",), name="touch",
+                 scheduler=s)(x)
+        host_dtype = str(np.asarray(y).dtype)
+        got_y = np.asarray(y).view(np.uint16)
+        got_x = np.asarray(x).view(np.uint16)      # read back off the card
+
+        def host_bits(t):
+            return t.view(torch.int16).cpu().numpy().view(np.uint16)
+        checks = {"upload": np.array_equal(host_bits(seen["in"]), bits),
+                  "out read": np.array_equal(got_y, host_bits(seen["out"])),
+                  "round trip": np.array_equal(got_x, bits)}
+    finally:
+        s.close()
+    print(f"[analysis] bf16 managed arrays, {n} elements: "
+          f"{json.dumps(checks)} (host mirror dtype {host_dtype})")
+    if not all(checks.values()):
+        raise AssertionError(f"bf16 round trip lost bits: {checks}")
+
+
+def phase_analysis(card: str, overheads: dict) -> None:
+    t_phase = time.perf_counter()
+    lint_then_run(card)
+    print(f"[analysis] sanitizer overhead, mean wall over the mean "
+          f"unsanitized parallel wall: {json.dumps(overheads)} ({card})")
+    digest_cost(card)
+    seeded_faults(card)
+    plans_on_card(card)
+    bf16_round_trip(card)
+    print(f"[analysis] phase {time.perf_counter() - t_phase:.2f} s")
 
 
 def main() -> int:
@@ -1043,7 +1402,10 @@ def main() -> int:
     rwkv = phase_rwkv(card, profile)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_benchsuite(card, profile)
+    overheads = phase_benchsuite(card, profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_analysis(card, overheads)
     for row in rows:
         row["launches"] = (rwkv if row["name"] == "wkv6" else launches)[
             row["name"]]

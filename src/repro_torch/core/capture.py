@@ -895,10 +895,11 @@ class CaptureContext:
                 if getattr(self.sched, "sanitize", False):
                     # Sanitize mode: never cache a plan that fails the
                     # happens-before/liveness verifier.
-                    raise NotImplementedError(
-                        "plan verification needs the analysis passes, which "
-                        "repro_torch does not have yet (ROADMAP A7, the "
-                        "analysis slice)")
+                    from ..analysis.verifier import (PlanVerificationError,
+                                                     verify_plan)
+                    violations = verify_plan(plan)
+                    if violations:
+                        raise PlanVerificationError(plan.name, violations)
                 for displaced in self.sched.plan_cache.store(plan):
                     self.sched.streams.unreserve(displaced.key)
         return False

@@ -31,6 +31,7 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
+from .dtypes import to_numpy, to_tensor, torch_dtype
 from .element import AccessMode, ComputationalElement, ElementKind, ElementState
 from .history import KernelHistory
 from .timeline import Timeline
@@ -120,7 +121,8 @@ class Executor:
 def _to_device(x, dev: torch.device):
     """Commit one value to the lane's device: host arrays are uploaded,
     tensors elsewhere are copied, anything else (a model, a dict of caches)
-    passes through unchanged.
+    passes through unchanged.  A bf16 host array (``ml_dtypes.bfloat16``)
+    arrives as ``torch.bfloat16`` with its bits unchanged.
 
     On CUDA a host array is first copied into pinned memory from PyTorch's
     caching host allocator, then uploaded with ``non_blocking=True``: from
@@ -130,7 +132,7 @@ def _to_device(x, dev: torch.device):
     stays about as large as the uploads in flight; host mirrors themselves
     stay pageable."""
     if isinstance(x, np.ndarray):
-        t = torch.from_numpy(x)
+        t = to_tensor(x)
         if dev.type == "cuda":
             t = t.pin_memory()
         return t.to(dev, non_blocking=True)
@@ -148,8 +150,8 @@ def _arg_value(arg, dev: torch.device):
     ma = arg.array
     if (arg.mode is AccessMode.OUT and ma.device is None
             and isinstance(ma.host, np.ndarray)):
-        dtype = torch.from_numpy(np.empty(0, ma.host.dtype)).dtype
-        return torch.empty(ma.host.shape, dtype=dtype, device=dev)
+        return torch.empty(ma.host.shape, dtype=torch_dtype(ma.host.dtype),
+                           device=dev)
     return _to_device(ma.device_value(), dev)
 
 
@@ -188,7 +190,7 @@ def _run_device_element(e: ComputationalElement, dev: torch.device):
         # when it was the only valid one, then actually release the device
         # buffer (dropping the reference frees the backing device memory).
         if e.config.get("writeback", True) and ma.device is not None:
-            np.copyto(ma.host, ma.device.cpu().numpy())
+            np.copyto(ma.host, to_numpy(ma.device))
         ma.set_physical_device(None)
         return
 
@@ -224,13 +226,18 @@ class _LaneWorker(threading.Thread):
         self._streams: Dict[torch.device, "torch.cuda.Stream"] = {}
         self.start()
 
-    def _execute(self, element: ComputationalElement) -> None:
-        """Run one element to completion on this lane.
+    def _execute(self, element: ComputationalElement) -> tuple:
+        """Run one element to completion on this lane, between the
+        executor's ``pre_exec`` and ``post_exec`` hooks; returns the host
+        clock at its start and end (inside the hooks).
 
         On CUDA the element's copies and kernels are issued on the lane's
         stream (the current stream is thread-local in PyTorch), and the
         element is complete once an event recorded after them has
-        synchronized — the ``block_until_ready`` of the JAX executor.
+        synchronized — the ``block_until_ready`` of the JAX executor.  The
+        hooks run with that stream current: whatever ``pre_exec`` issues on
+        the device is ordered before the element's kernels, and
+        ``post_exec`` runs once they have completed.
 
         Caching allocator across streams: a tensor made on lane A and read
         on lane B stays safe only because B starts after A's event has
@@ -238,18 +245,33 @@ class _LaneWorker(threading.Thread):
         block is freed back to A's pool while B's kernels still read it.
         Moving cross-lane waits onto the device (``wait_event``) will need
         ``record_stream`` on every tensor a lane consumes from another."""
-        dev = self.executor.torch_device_for(element)
+        ex = self.executor
+        pre, post = ex.pre_exec, ex.post_exec
+        dev = ex.torch_device_for(element)
         if dev.type != "cuda":
+            if pre is not None:
+                pre(element)
+            t0 = ex.host_now()
             _run_device_element(element, dev)
-            return
+            t1 = ex.host_now()
+            if post is not None:
+                post(element)
+            return t0, t1
         stream = self._streams.get(dev)
         if stream is None:
             stream = self._streams[dev] = torch.cuda.Stream(device=dev)
         with torch.cuda.stream(stream):
+            if pre is not None:
+                pre(element)
+            t0 = ex.host_now()
             _run_device_element(element, dev)
             done = torch.cuda.Event()
             done.record(stream)
-        done.synchronize()
+            done.synchronize()
+            t1 = ex.host_now()
+            if post is not None:
+                post(element)
+        return t0, t1
 
     def run(self) -> None:
         while True:
@@ -270,15 +292,7 @@ class _LaneWorker(threading.Thread):
                 if gate is not None:
                     gate.wait()
                 element.state = ElementState.RUNNING
-                pre = self.executor.pre_exec
-                if pre is not None:
-                    pre(element)
-                t0 = self.executor.host_now()
-                self._execute(element)
-                t1 = self.executor.host_now()
-                post = self.executor.post_exec
-                if post is not None:
-                    post(element)
+                t0, t1 = self._execute(element)
                 element.t_start, element.t_end = t0, t1
                 kind = ("h2d" if element.kind in (ElementKind.TRANSFER,
                                                  ElementKind.RELOAD)

@@ -95,9 +95,10 @@ def optimize_plan(sched, plan: ExecutionPlan) -> ExecutionPlan:
         # Sanitize mode: a rewrite must pass the happens-before/liveness
         # verifier before it can replace the (already verified) greedy
         # trace — a planopt bug must never reach the replay fast path.
-        raise NotImplementedError(
-            "plan verification needs the analysis passes, which repro_torch "
-            "does not have yet (ROADMAP A7, the analysis slice)")
+        from ..analysis.verifier import PlanVerificationError, verify_plan
+        violations = verify_plan(new)
+        if violations:
+            raise PlanVerificationError(new.name, violations)
     return new
 
 

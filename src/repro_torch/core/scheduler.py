@@ -25,6 +25,7 @@ import numpy as np
 from .capture import CaptureContext, ExecutionPlan, PlanCache, replay_plan
 from .dag import ComputationDAG
 from .deadlines import DeadlineMonitor
+from .dtypes import to_numpy
 from .element import (Arg, ComputationalElement, DEFAULT_TENANT, ElementKind,
                       ElementState, const, dep_key, inout, out)
 from .executor import Executor, SimExecutor, SimHardware, ThreadLaneExecutor
@@ -60,10 +61,6 @@ class GrScheduler:
                  sanitize: bool = False,
                  device: str = "cuda") -> None:
         assert policy in ("serial", "parallel")
-        if sanitize:
-            raise NotImplementedError(
-                "sanitize=True needs the analysis passes, which repro_torch "
-                "does not have yet (ROADMAP A7, the analysis slice)")
         self.policy = policy
         self.num_devices = max(1, num_devices)
         self.executor = executor or ThreadLaneExecutor(
@@ -121,10 +118,18 @@ class GrScheduler:
         # everything submitted from ``position`` on.  Cleared with
         # ``_elements`` at every full sync; cheap enough to keep always-on.
         self._host_log: List[tuple] = []
-        # Sanitizer runtime mode: not ported yet (``sanitize=True`` raised
-        # above), so no hook is ever installed.
-        self.sanitize = False
+        # Sanitizer runtime mode (repro_torch.analysis): version-vector race
+        # detection at element boundaries.  Off by default — with
+        # ``sanitize=False`` no hook is installed and scheduling is
+        # bit-identical.
+        self.sanitize = bool(sanitize)
         self.sanitizer = None
+        if self.sanitize:
+            from ..analysis.sanitizer import Sanitizer
+            self.sanitizer = Sanitizer(
+                checksums=not isinstance(self.executor, SimExecutor))
+            self.executor.pre_exec = self.sanitizer.pre_exec
+            self.executor.post_exec = self.sanitizer.post_exec
         self._closed = False
 
     # ------------------------------------------------------------------
@@ -354,7 +359,7 @@ class GrScheduler:
             ex.timeline.record(-1, f"d2h_{ma.name}", "d2h", None, t0, ex.host_time)
         else:
             t0 = ex.host_now()
-            ma.host = ma.device.cpu().numpy()
+            ma.host = to_numpy(ma.device)
             ex.timeline.record(-1, f"d2h_{ma.name}", "d2h", None, t0, ex.host_now())
         ma.host_valid = True
 
@@ -460,13 +465,14 @@ class GrScheduler:
             self._host_log.clear()
 
     def verify(self, plans: bool = True) -> None:
-        """Run the happens-before verifier (``repro.analysis``) over the
-        live element window, the DAG bookkeeping invariants and every
+        """Run the happens-before verifier (``repro_torch.analysis``) over
+        the live element window, the DAG bookkeeping invariants and every
         cached plan; raises :class:`PlanVerificationError` on any
         violation."""
-        raise NotImplementedError(
-            "verify() needs the analysis passes, which repro_torch does not "
-            "have yet (ROADMAP A7, the analysis slice)")
+        from ..analysis.verifier import PlanVerificationError, verify_scheduler
+        violations = verify_scheduler(self, plans=plans)
+        if violations:
+            raise PlanVerificationError("scheduler", violations)
 
     @property
     def timeline(self) -> Timeline:

@@ -52,6 +52,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .dtypes import to_numpy
+
 
 def _nbytes(block: Any) -> int:
     try:
@@ -64,7 +66,7 @@ def _block_value(block: Any) -> np.ndarray:
     """The newest physical value of a victim at spill time (real executor):
     the device copy when one is materialized, else the host buffer."""
     dev = getattr(block, "device", None)
-    return dev.cpu().numpy() if dev is not None else np.asarray(block.host)
+    return to_numpy(dev) if dev is not None else np.asarray(block.host)
 
 
 class BackingTier:
@@ -404,16 +406,24 @@ class DiskTier(BackingTier):
         self._files[key] = final
         self.files_written += 1
 
+    @staticmethod
+    def _typed(val: np.ndarray, block: Any) -> np.ndarray:
+        """``.npy`` files store ``ml_dtypes.bfloat16`` as raw 2-byte
+        records (``V2``); view them back as the block's host dtype."""
+        if val.dtype.kind == "V":
+            return val.view(block.host.dtype)
+        return val
+
     def peek(self, block: Any):
         from .element import dep_key
         path = self._files.get(dep_key(block))
-        return np.load(path) if path else None
+        return self._typed(np.load(path), block) if path else None
 
     def reload(self, block: Any) -> np.ndarray:
         from .element import dep_key
         key = dep_key(block)
         val = np.load(self._files[key], mmap_mode="r")
-        val = np.array(val)                    # materialize off the mmap
+        val = self._typed(np.array(val), block)   # materialize off the mmap
         host = getattr(block, "host", None)
         if host is not None:
             np.copyto(host, val)
