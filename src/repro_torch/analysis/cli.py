@@ -21,14 +21,15 @@ import sys
 import time
 from typing import List
 
-# The daemon's job kernels and the trainer are not ported yet (ROADMAP A.2
-# and A.5); their modules join this list when they are.
+# The trainer is not ported yet (ROADMAP A.5); its module joins this list
+# when it is.
 _LINT_MODULES = (
     "repro_torch.benchsuite.kernels",
     "repro_torch.benchsuite.multitenant",
     "repro_torch.benchsuite.multidevice",
     "repro_torch.benchsuite.outofcore",
     "repro_torch.benchsuite.slo",
+    "repro_torch.daemon.jobs",
     "repro_torch.runtime.serving",
 )
 

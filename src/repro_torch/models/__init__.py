@@ -1,5 +1,6 @@
-"""Model zoo of the port: the dense decoder family and the ssm family
-(RWKV6, ``rwkv.py``); see ROADMAP.md for the families still to come."""
+"""Model zoo of the port: the dense decoder family, the MoE family
+(``moe.py``: dbrx, qwen2-moe) and the ssm family (RWKV6, ``rwkv.py``); see
+ROADMAP.md for the families still to come."""
 from .config import ArchConfig, MoEConfig, SSMConfig, SHAPES, ShapeCell
 from .convert import from_jax_params
 from .transformer import (LM, forward_decode, forward_prefill, init_cache,

@@ -25,6 +25,17 @@ def _fill(param: torch.nn.Parameter, value) -> None:
         param.copy_(torch.from_numpy(np.array(value)))
 
 
+def _fill_group(module: torch.nn.Module, params, g: int) -> None:
+    """Layer ``g`` of each stacked array of ``params`` into ``module``'s
+    parameter of the same name; a nested dict (the MoE's ``shared`` MLP)
+    is the submodule of its name."""
+    for name, value in params.items():
+        if isinstance(value, dict):
+            _fill_group(getattr(module, name), value, g)
+        else:
+            _fill(getattr(module, name), value[g])
+
+
 def from_jax_params(np_params, cfg: ArchConfig, device="cuda") -> LM:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -39,9 +50,8 @@ def from_jax_params(np_params, cfg: ArchConfig, device="cuda") -> LM:
     kinds = layer_kinds(cfg)
     for layer, blk in enumerate(model.blocks):
         g, i = divmod(layer, len(kinds))
-        # Each group of a block's parameters (ln1, ln2 and attn + ffn, or
-        # rwkv + cmix) is the port module of the same name.
+        # Each group of a block's parameters (ln1, ln2 and attn + ffn or
+        # moe, or rwkv + cmix) is the port module of the same name.
         for group, params in np_params["blocks"][i].items():
-            for name, value in params.items():
-                _fill(getattr(getattr(blk, group), name), value[g])
+            _fill_group(getattr(blk, group), params, g)
     return model

@@ -1,4 +1,4 @@
-"""LM stack of the port: the dense and ssm (RWKV6) families of
+"""LM stack of the port: the dense, MoE and ssm (RWKV6) families of
 ``repro.models.transformer``.
 
 The reference scans layer *groups* with ``lax.scan`` over stacked
@@ -9,7 +9,10 @@ is position ``i`` of group ``g`` in the reference (gemma3: five
 per-layer dicts, updated in place where the reference returns new ones:
 ``{"k", "v"}`` bf16 tensors written in place for attention layers, and
 ``{"shift", "wkv", "cmix_shift"}`` float32 states for rwkv layers, whose
-entries are replaced by the new states.
+entries are replaced by the new states.  An MoE config's blocks hold a
+``moe.MoE`` where the others hold an ``MLP``, as the reference's
+``_ffn_part`` does; its aux losses are summed into an ``aux`` dict where a
+caller passes one, and dropped otherwise (serving).
 
 Numerics follow the reference: f32 parameters cast at every matmul, a bf16
 residual stream from the embedding on, bf16 caches and f32 logits.
@@ -26,14 +29,14 @@ import torch
 from torch import nn
 
 from . import attention as A
+from . import moe as MOE
 from . import rwkv as R
 from .config import ArchConfig
 from .layers import MLP, Norm, normal_init
 
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "ssm")
 # Families the port does not have yet, and where ROADMAP.md lists them.
 _UNPORTED = {
-    "moe": "ROADMAP.md §A, 'Remaining model families' (MoE)",
     "hybrid": "ROADMAP.md §A, 'Remaining model families' (hybrid)",
     "encdec": "ROADMAP.md §A, 'Remaining model families' (encoder-decoder)",
     "vlm": "ROADMAP.md §A, 'Remaining model families' (VLM)",
@@ -84,7 +87,11 @@ class Block(nn.Module):
             return
         self.attn = A.Attention(cfg, generator, device, dtype)
         self.ln2 = Norm(cfg, cfg.d_model, device, dtype)
-        self.ffn = MLP(cfg, cfg.d_model, cfg.d_ff, generator, device, dtype)
+        if cfg.moe is not None:
+            self.moe = MOE.MoE(cfg, generator, device, dtype)
+        else:
+            self.ffn = MLP(cfg, cfg.d_model, cfg.d_ff, generator, device,
+                           dtype)
 
 
 class LM(nn.Module):
@@ -154,18 +161,31 @@ def _apply_rwkv_block(cfg, blk: Block, x, state, seq: bool):
     return x + y2
 
 
+def _ffn_part(cfg, blk: Block, x, aux: Optional[dict]):
+    h = blk.ln2(x)
+    if not hasattr(blk, "moe"):
+        return x + blk.ffn(h)
+    y, a = MOE.apply_moe(cfg, blk.moe, h)
+    if aux is not None:
+        aux["moe_aux"] = aux.get("moe_aux", 0.0) + a["moe_aux"]
+        aux["moe_z"] = aux.get("moe_z", 0.0) + a["moe_z"]
+        aux.setdefault("moe_kept", []).append(a["moe_kept"])
+    return x + y
+
+
 def apply_block_seq(cfg, blk: Block, x, positions, *, cache=None,
-                    use_flash: bool = False):
+                    use_flash: bool = False, aux: Optional[dict] = None):
     """Full-sequence mode.  Writes the block's keys/values (attention) or
     new states (rwkv) into ``cache`` in place and returns the new residual
-    stream."""
+    stream; an MoE block adds its aux losses and kept-token counts to
+    ``aux`` where one is given."""
     if blk.kind == "rwkv":
         return _apply_rwkv_block(cfg, blk, x, cache, seq=True)
     h = blk.ln1(x)
     y, (k, v) = A.attend_full(cfg, blk.attn, h, positions, window=blk.window,
                               use_flash=use_flash)
     x = x + y
-    x = x + blk.ffn(blk.ln2(x))
+    x = _ffn_part(cfg, blk, x, aux)
     if cache is not None:
         S = k.shape[1]
         W = cache["k"].shape[1]
@@ -187,7 +207,7 @@ def apply_block_decode(cfg, blk: Block, x, cache, pos: int):
     y, kv = A.attend_decode(cfg, blk.attn, h, cache, pos, window=blk.window)
     cache.update(kv)
     x = x + y
-    return x + blk.ffn(blk.ln2(x))
+    return _ffn_part(cfg, blk, x, None)
 
 
 # ----------------------------------------------------------------------

@@ -7,26 +7,8 @@ import statistics
 import numpy as np
 import pytest
 
+from _torch_memory_check import _verify_torch_memory_accounting  # noqa: F401
 from repro_torch.core import const, inout, make_scheduler, out
-
-
-@pytest.fixture(autouse=True)
-def _verify_memory_accounting(monkeypatch):
-    """Reconcile the port's MemoryManager ledger at every ``sync`` of a
-    simulated scheduler, as ``tests/conftest.py`` does for ``repro``'s:
-    drift fails at the sync that caused it."""
-    from repro_torch.core.scheduler import GrScheduler
-
-    orig_sync = GrScheduler.sync
-
-    def sync_and_verify(self, *a, **kw):
-        res = orig_sync(self, *a, **kw)
-        if type(self.executor).__name__ == "SimExecutor":
-            report = self.memory.verify(raise_on_drift=False)
-            assert report.ok, f"memory accounting drift at sync: {report}"
-        return res
-
-    monkeypatch.setattr(GrScheduler, "sync", sync_and_verify)
 
 
 def _episode(s, n=1024, cost=1e-4, tag=""):

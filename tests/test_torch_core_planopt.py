@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 
 from _hypothesis_fallback import given, settings, st
+from _torch_memory_check import _verify_torch_memory_accounting  # noqa: F401
 from repro_torch.benchsuite.multidevice import build_locality_heavy
 from repro_torch.benchsuite.outofcore import (build_outofcore,
                                               verify_outofcore,
@@ -14,25 +15,6 @@ from repro_torch.benchsuite.outofcore import (build_outofcore,
 from repro_torch.core import const, inout, make_scheduler, out
 from repro_torch.core.frontend import function
 from repro_torch.core.planopt import optimize_plan
-
-
-@pytest.fixture(autouse=True)
-def _verify_memory_accounting(monkeypatch):
-    """Reconcile the port's MemoryManager ledger at every ``sync`` of a
-    simulated scheduler, as ``tests/conftest.py`` does for ``repro``'s:
-    drift fails at the sync that caused it."""
-    from repro_torch.core.scheduler import GrScheduler
-
-    orig_sync = GrScheduler.sync
-
-    def sync_and_verify(self, *a, **kw):
-        res = orig_sync(self, *a, **kw)
-        if type(self.executor).__name__ == "SimExecutor":
-            report = self.memory.verify(raise_on_drift=False)
-            assert report.ok, f"memory accounting drift at sync: {report}"
-        return res
-
-    monkeypatch.setattr(GrScheduler, "sync", sync_and_verify)
 
 
 def _capture_plan(s, name, builder):

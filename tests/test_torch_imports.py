@@ -14,6 +14,10 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
+# Modules of the daemon and MoE slice, named so that a missing one fails.
+NEW_MODULES = tuple(f"repro_torch.daemon.{m}" for m in (
+    "cli", "client", "jobs", "lifecycle", "monitor", "policy", "server",
+    "store", "wire", "__main__")) + ("repro_torch.models.moe",)
 
 
 def _port_sources():
@@ -32,6 +36,8 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         f"    {FORBIDDEN!r})\n"
         "print(len(names), bad)\n"
         "assert len(names) >= 25, names\n"
+        f"missing = set({NEW_MODULES!r}) - set(names)\n"
+        "assert not missing, missing\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
@@ -61,8 +67,9 @@ def _tiny_cpu_model():
     return cfg, init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
 
 
-def test_entry_points_raise_without_a_card(monkeypatch):
+def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     from repro_torch.core import GrScheduler, make_scheduler
+    from repro_torch.daemon import DaemonServer
     from repro_torch.models import from_jax_params, init_lm
     from repro_torch.runtime import ServingEngine
 
@@ -78,6 +85,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         init_lm(cfg, torch.Generator())
     with pytest.raises(RuntimeError, match="cuda"):
         from_jax_params({"embed": np.zeros((1, 1), np.float32)}, cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        DaemonServer(os.path.join(str(tmp_path), "d.sock"))
     # The simulator needs no device; the CPU is there when asked for.
     make_scheduler(simulate=True).close()
     make_scheduler(device="cpu").close()
