@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Seven phases, each of which raises on failure (nothing is caught):
+Eight phases, each of which raises on failure (nothing is caught):
 
 1. build: compiles every CUDA kernel of the port from ``src/repro_torch``
    with ``nvcc`` (one process per source, all at once) into ``build/``,
@@ -63,12 +63,29 @@ Seven phases, each of which raises on failure (nothing is caught):
    2**24 and ``serve_lm`` jobs equal to the same work in-process, a sleep
    job paused, resumed and cancelled, stats, drain, shutdown and
    ``jobs --audit``; then ``benchmarks/bench_daemon.py``'s ipc, spike and
-   calm scenarios at their full sizes with their gates.
+   calm scenarios at their full sizes with their gates;
+8. training, in a process of its own (the earlier phases leave about 5
+   GiB allocated; the ``[memory]`` lines say after which phase), which
+   asserts that under 1 GiB is allocated when it starts: (a) RMSNorm's autograd function (the kernel's forward, the closed-form
+   backward) at the training shapes of (b), and the chunked attention's
+   backward in float32 at S 2048, against autograd through their plain
+   versions; (b) ``TaskGraphTrainer`` on ``qwen3_32b`` at full width cut
+   to 2 layers, random weights from seed 0: 8 steps (seq 128, global
+   batch 8, accum 2, AdamW f32, remat, parallel policy), checking finite
+   losses, the first against its reckoned value and RMSNorm's launches a
+   step, then 5 steps under the serial policy (losses equal) and
+   ``run_with_restart(8, fail_at=5)`` with one 30 GB checkpoint (its last
+   loss equal); prints the step time, tok/s, peak memory and the
+   scheduler's stats, and with ``--profile`` one step under the profiler;
+   (c) ``python -m repro_torch.launch.train --reduced`` on the card, 12
+   steps, then 6 and 12 resumed from its checkpoint: the resumed
+   ``step N:`` lines equal the uninterrupted ones.
 
-Each serving phase sets every kernel's launch count to 0 just before it
-serves and reads the counts just after.  ``--profile`` adds, to each
-serving phase, two warm runs, the second under ``torch.profiler``, and runs
-under the serial policy; to each benchsuite workload, one more parallel run
+Each serving phase, and phase 8b's first run, sets every kernel's launch
+count to 0 just before it runs and reads the counts just after.
+``--profile`` adds, to each serving phase, two warm runs, the second under
+``torch.profiler``, and runs under the serial policy; to phase 8b one
+profiled step; to each benchsuite workload, one more parallel run
 under ``torch.profiler``, from whose trace it prints the device's busy and
 idle share, the streams that ran kernels (fewer than two fails), the share
 of kernel time with kernels on two streams or more, and the share of
@@ -1855,6 +1872,353 @@ def phase_daemon(card: str) -> None:
     print(f"[daemon] phase {time.perf_counter() - t_phase:.2f} s")
 
 
+# The training phase.  8a: the autograd functions on the card at the
+# training shapes of 8b (RMSNorm rows of (micro-batch tokens, d) for ln1,
+# ln2 and the final norm, (tokens x heads, hd) for the q- and k-norms) and
+# the chunked attention in float32 at S 2048.  8b: TaskGraphTrainer on the
+# full-width qwen3_32b cut to 2 layers.  8c: the train CLI interrupted and
+# resumed.
+TRAIN_RMS_CASES = [("ln1, ln2, final_norm", (512, 5120)),
+                   ("q_norm", (512 * 64, 128)), ("k_norm", (512 * 8, 128))]
+# (label, window, softcap); causal, B 1, S 2048, H 8, Hkv 2, hd 128.
+CHUNK_CASES = [("causal", 0, 0.0), ("causal window 1024", 1024, 0.0),
+               ("causal softcap 30", 0, 30.0)]
+# The chunked backward sums in another order than autograd through the
+# materialized scores: 2e-5 of each output's scale in float32.
+CHUNK_TOL = 2e-5
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 128, 8, 2, 8
+# The argument that runs phase 8 alone, in the process the script starts
+# for it.
+TRAIN_ONLY = "--phase-8-process"
+# A full-width save is 30.4 GB, and the run keeps what it writes to disk
+# under 45 GiB (PERF.md §6): one save, at step 5; the restart run fails at
+# 5, restores 5 and runs to 8.
+FAIL_AT, CKPT_EVERY = 5, 5
+# RMSNorm launches a step: ln1, ln2, q_norm and k_norm in each of 2 layers
+# and the final norm in the forward (9), the blocks' 8 again in remat's
+# recompute, for each of 2 micro-batches.
+RMS_PER_STEP = (9 + 8) * TRAIN_ACCUM
+
+
+def train_autograd_on_card(card: str) -> None:
+    """8a: RMSNorm's autograd function (kernel forward, closed-form
+    backward) and the chunked attention's custom backward against
+    autograd through their plain versions."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rmsnorm import ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.models import attention as TA
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for label, shape in TRAIN_RMS_CASES:
+        x0 = torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        s0 = torch.randn(shape[-1], generator=gen, device="cuda") * 0.1 + 1
+        gy = torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        x, s = x0.clone().requires_grad_(True), s0.clone().requires_grad_(True)
+        before = ops.launches
+        y = ops.rmsnorm(x, s)
+        if ops.launches != before + 1:
+            raise AssertionError("RMSNorm under grad did not launch the "
+                                 "kernel")
+        y.backward(gy)
+        xr, sr = x0.clone().requires_grad_(True), s0.clone().requires_grad_(
+            True)
+        yr = rmsnorm_ref(xr, sr)
+        yr.backward(gy)
+        what = f"train rmsnorm {label} {shape} bf16"
+        check_close(f"{what} forward", y.detach(), yr.detach(),
+                    TOL["bfloat16"], TOL["bfloat16"])
+        # dx is rounded to bf16 like the forward; dscale sums rows in f32
+        # in another order: 1e-4 of its scale.
+        check_close(f"{what} dx", x.grad, xr.grad, TOL["bfloat16"],
+                    TOL["bfloat16"])
+        ds_scale = float(sr.grad.abs().max())
+        check_close(f"{what} dscale", s.grad, sr.grad, 1e-4,
+                    1e-4 * ds_scale)
+    B, S, H, Hkv, hd = 1, 2048, 8, 2, 128
+    for label, window, softcap in CHUNK_CASES:
+        cfg = dc.replace(get_config("qwen3_32b"), logit_softcap=softcap)
+        q = torch.randn(B, S, H, hd, generator=gen, device="cuda")
+        k = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda")
+        v = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda")
+        dout = torch.randn(B, S, H * hd, generator=gen, device="cuda")
+        res = []
+        for chunked in (True, False):
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            if chunked:
+                o = TA._sdpa_chunked(cfg, *leaves, causal=True,
+                                     window=window)
+            else:
+                o = TA._sdpa(cfg, *leaves, TA.causal_mask(
+                    S, S, window, device=q.device))
+            o.backward(dout)
+            res.append([o.detach()] + [t.grad for t in leaves])
+        for name, got, want in zip(("out", "dq", "dk", "dv"), *res):
+            scale = float(want.abs().max())
+            check_close(f"train chunked attention {label} f32 S {S} GQA "
+                        f"{H}/{Hkv} {name}", got, want, 0.0,
+                        CHUNK_TOL * scale)
+    torch.cuda.synchronize()
+    print(f"[train] 8a: autograd functions agree with their plain versions "
+          f"({card})")
+
+
+def free_card(after: str = "") -> None:
+    """Collects garbage and returns cached device memory; after a phase,
+    prints what the phase left allocated on the card."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    if after:
+        print(f"[memory] after {after}: "
+              f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+
+
+def trainer_run(cfg, steps: int, **kw):
+    """A TaskGraphTrainer on the card: its report, the train_step spans'
+    seconds, the scheduler's stats and the peak device memory; the
+    trainer's scheduler is shut down and its state freed."""
+    import torch
+    from repro_torch.runtime import TaskGraphTrainer
+    torch.cuda.reset_peak_memory_stats()
+    tr = TaskGraphTrainer(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                          accum=TRAIN_ACCUM, device="cuda", **kw)
+    rep = tr.run(steps, metrics_every=1)
+    torch.cuda.synchronize()
+    spans = [sp.t1 - sp.t0 for sp in tr.sched.timeline.spans
+             if sp.name == "train_step"]
+    stats = tr.sched.stats()
+    tr.sched.shutdown()
+    del tr
+    free_card()
+    return rep, spans, stats, torch.cuda.max_memory_allocated()
+
+
+def profile_train_step(cfg, card: str) -> None:
+    """One step of the trainer's step function, called directly after two
+    warm steps, under ``torch.profiler``: the device busy share and the
+    kernels that take the device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import SyntheticTokenStream
+    from repro_torch.models import init_lm
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import TrainState, make_train_step
+    opt = AdamW(lr=1e-3, warmup=10, total_steps=1000)
+    model = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda")
+    state = TrainState(model, opt.init(model))
+    step = make_train_step(cfg, opt)
+    stream = SyntheticTokenStream(cfg, TRAIN_SEQ, TRAIN_BATCH,
+                                  accum=TRAIN_ACCUM)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in stream.batch(0).items()}
+    for _ in range(2):
+        step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, span = device_busy_us(prof.events())
+    print(f"[profile train] one step under the profiler: wall {wall:.4f} s, "
+          f"device busy {busy / 1e6:.4f} s over a {span / 1e6:.4f} s device "
+          f"span, busy share of the wall {busy / 1e6 / wall:.4f} ({card})")
+    table = prof.key_averages().table(sort_by="self_cuda_time_total",
+                                      row_limit=30)
+    for line in table.splitlines():
+        print(f"[profile train] {line}")
+    del state, model, batch, prof
+    free_card()
+
+
+def train_full_width(card: str, profile: bool) -> dict:
+    """8b: TaskGraphTrainer on qwen3_32b at full width, 2 layers; returns
+    the kernels' launch counts of the uninterrupted run."""
+    import math
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import GrScheduler
+
+    cfg = dataclasses.replace(get_config("qwen3_32b"), n_layers=2)
+    n_params = (2 * cfg.vocab * cfg.d_model + cfg.d_model + cfg.n_layers * (
+        2 * cfg.d_model * (cfg.n_heads + cfg.n_kv_heads) * cfg.hd
+        + 3 * cfg.d_model * cfg.d_ff + 2 * cfg.d_model + 2 * cfg.hd))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # Unit-RMS rows after the final norm against a head of std 0.02: each
+    # logit has variance d * 0.02², so E[lse] = ln V + d * 0.02² / 2; the
+    # z-loss adds 1e-4 * lse².
+    lse = math.log(cfg.vocab) + cfg.d_model * 0.02 ** 2 / 2
+    first_want = lse + 1e-4 * lse ** 2
+    print(f"[train] 8b: {cfg.name} at full width, {cfg.n_layers} layers, "
+          f"{n_params:,} f32 parameters ({16 * n_params / 1e9:.2f} GB with "
+          f"gradients and two AdamW moments); seq {TRAIN_SEQ}, global batch "
+          f"{TRAIN_BATCH}, accum {TRAIN_ACCUM}, remat, parallel policy")
+
+    t0 = time.perf_counter()
+    reset_launches()                      # count the main path only
+    rep, spans, stats, peak = trainer_run(cfg, TRAIN_STEPS)
+    launches = read_launches()
+    wall = time.perf_counter() - t0
+    losses = rep.losses
+    steady = spans[2:]
+    med = statistics.median(steady)
+    print(f"[train] {TRAIN_STEPS} steps: losses {json.dumps(losses)}; first "
+          f"{losses[0]:.4f} against {first_want:.4f} reckoned (ln V "
+          f"{math.log(cfg.vocab):.4f})")
+    print(f"[train] train_step spans (s) {json.dumps(spans)}: median after "
+          f"the first two {med:.4f} s (min {min(steady):.4f}, max "
+          f"{max(steady):.4f}), {tokens / med:.1f} tok/s; run wall "
+          f"{wall:.2f} s with init; peak device memory {peak / 2**30:.3f} GiB "
+          f"({peak / 1e9:.2f} GB); launches {json.dumps(launches)} ({card})")
+    print(f"[train] scheduler stats {json.dumps(stats, default=str)}")
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"losses not finite: {losses}")
+    if abs(losses[0] - first_want) > 0.1:
+        raise AssertionError(f"first loss {losses[0]} is not within 0.1 of "
+                             f"{first_want:.4f}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    expect_launches(launches, {"rmsnorm": RMS_PER_STEP * TRAIN_STEPS,
+                               "flash_attention": 0, "wkv6": 0})
+
+    serial, sspans, _, _ = trainer_run(
+        cfg, 5, scheduler=GrScheduler(policy="serial", device="cuda"))
+    diff = float(np.max(np.abs(np.subtract(serial.losses, losses[:5]))))
+    print(f"[train] serial policy, 5 steps: losses "
+          f"{json.dumps(serial.losses)}; largest difference from the "
+          f"parallel run {diff:.3e} (rtol 1e-5); median step "
+          f"{statistics.median(sspans[2:]):.4f} s ({card})")
+    np.testing.assert_allclose(serial.losses, losses[:5], rtol=1e-5)
+
+    from repro_torch.runtime import TaskGraphTrainer
+    tmp = tempfile.mkdtemp(prefix="smoke-train-")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        tr = TaskGraphTrainer(cfg, seq_len=TRAIN_SEQ,
+                              global_batch=TRAIN_BATCH, accum=TRAIN_ACCUM,
+                              ckpt_dir=tmp, ckpt_every=CKPT_EVERY,
+                              device="cuda")
+        t0 = time.perf_counter()
+        rrep = tr.run_with_restart(TRAIN_STEPS, fail_at=FAIL_AT)
+        rwall = time.perf_counter() - t0
+        saved = os.path.join(tmp, f"step_{FAIL_AT}")
+        size = sum(os.path.getsize(os.path.join(saved, f))
+                   for f in os.listdir(saved))
+        tr.sched.shutdown()
+        del tr
+        free_card()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rdiff = abs(rrep.losses[-1] - losses[-1])
+    print(f"[train] run_with_restart({TRAIN_STEPS}, fail_at={FAIL_AT}), a "
+          f"checkpoint every {CKPT_EVERY} steps: restarts "
+          f"{rrep.restarts}, last loss {rrep.losses[-1]!r} against "
+          f"{losses[-1]!r} uninterrupted, difference {rdiff:.3e} (rtol "
+          f"1e-5); wall {rwall:.2f} s for {TRAIN_STEPS} steps, a save of "
+          f"{size / 1e9:.2f} GB and a restore; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB ({card})")
+    np.testing.assert_allclose(rrep.losses[-1], losses[-1], rtol=1e-5)
+    if profile:
+        profile_train_step(cfg, card)
+    return launches
+
+
+def train_cli(card: str) -> None:
+    """8c: ``python -m repro_torch.launch.train`` on the card, 12 steps
+    uninterrupted, then 6 (the interruption) and 12 (the resume from the
+    step-4 checkpoint) in a fresh directory; the resumed ``step N:`` lines
+    must equal the uninterrupted ones character for character."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="smoke-train-cli-")
+    env = dict(os.environ, PYTHONPATH=SRC)
+
+    def run(d: str, steps: int) -> list:
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             "qwen3_32b", "--reduced", "--steps", str(steps), "--ckpt",
+             os.path.join(tmp, d), "--ckpt-every", "4"],
+            env=env, capture_output=True, text=True, timeout=300)
+        if res.returncode != 0:
+            raise AssertionError(f"train CLI failed: {res.stdout}"
+                                 f"{res.stderr}")
+        lines = res.stdout.splitlines()
+        print(f"[train] CLI --steps {steps} in {d}: "
+              f"{time.perf_counter() - t0:.2f} s: {json.dumps(lines)}")
+        return lines
+
+    try:
+        full = run("a", 12)
+        run("b", 6)
+        resumed = run("b", 12)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def steps(lines):
+        return {ln.split(":")[0]: ln for ln in lines if ln.startswith("step ")}
+    if not full[0].startswith("device: cuda"):
+        raise AssertionError(f"the CLI did not run on the card: {full[0]}")
+    if "resumed from step 4" not in resumed:
+        raise AssertionError("the CLI did not resume from step 4")
+    if list(steps(full)) != ["step 5", "step 10", "step 12"] \
+            or steps(resumed) != steps(full):
+        raise AssertionError(f"resumed lines {steps(resumed)} differ from "
+                             f"the uninterrupted {steps(full)}")
+    print(f"[train] 8c: the resumed run's step lines equal the "
+          f"uninterrupted run's character for character ({card})")
+
+
+def phase_train_process(profile: bool) -> dict:
+    """Phase 8 in a process of its own, as phase 7b's daemon: the earlier
+    phases leave several GiB allocated on the card (the ``[memory]`` lines
+    say after which), and the train state needs 44 GiB beside them.
+    Returns the kernels' launch counts of 8b's main path, which the child
+    prints on its last line."""
+    cmd = [sys.executable, os.path.abspath(__file__), TRAIN_ONLY]
+    res = subprocess.run(cmd + (["--profile"] if profile else []),
+                         capture_output=True, text=True, timeout=1000)
+    sys.stdout.write(res.stdout)
+    sys.stderr.write(res.stderr)
+    lines = res.stdout.splitlines()
+    if res.returncode != 0 or not lines or not lines[-1].startswith("{"):
+        raise AssertionError(f"phase 8 failed (exit {res.returncode})")
+    return json.loads(lines[-1])
+
+
+def phase_train(card: str, profile: bool = False) -> dict:
+    import torch
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    print(f"[train] device memory allocated at the start: "
+          f"{held / 2**30:.3f} GiB")
+    if held >= 2**30:
+        raise AssertionError("an earlier phase left over 1 GiB on the card")
+    train_autograd_on_card(card)
+    print(f"[train] 8a {time.perf_counter() - t_phase:.2f} s")
+    t0 = time.perf_counter()
+    launches = train_full_width(card, profile)
+    print(f"[train] 8b {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    train_cli(card)
+    print(f"[train] 8c {time.perf_counter() - t0:.2f} s")
+    print(f"[train] phase {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1872,30 +2236,31 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     profile = "--profile" in sys.argv
+    if TRAIN_ONLY in sys.argv:          # phase 8's own process
+        print(json.dumps(phase_train(card, profile)))
+        return 0
     t0 = time.perf_counter()
     sass = phase_build()
     rows = [phase_flash(sass), phase_rmsnorm(), phase_wkv6()]
     launches = phase_qwen3(card, profile)
     # The qwen3 engine's reference cycles hold its weights until collected.
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_card("qwen3 serving")
     rwkv = phase_rwkv(card, profile)
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_card("rwkv serving")
     overheads = phase_benchsuite(card, profile)
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_card("benchsuite")
     phase_analysis(card, overheads)
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_card("analysis")
     moe = phase_moe(card, profile)
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_card("moe serving")
     phase_daemon(card)
+    free_card("daemon")
+    train = phase_train_process(profile)
     for row in rows:
         row["launches"] = (rwkv if row["name"] == "wkv6" else launches)[
             row["name"]]
         row["launches_moe"] = moe[row["name"]]
+        row["launches_train"] = train[row["name"]]
         if row["name"] == "wkv6":
             row["launches_decode"] = rwkv["wkv6_t1"]
             row["launches_prefill"] = rwkv["wkv6"] - rwkv["wkv6_t1"]

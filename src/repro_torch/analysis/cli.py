@@ -31,6 +31,7 @@ _LINT_MODULES = (
     "repro_torch.benchsuite.slo",
     "repro_torch.daemon.jobs",
     "repro_torch.runtime.serving",
+    "repro_torch.runtime.trainer",
 )
 
 

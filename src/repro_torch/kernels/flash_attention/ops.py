@@ -16,6 +16,7 @@ import threading
 
 import torch
 
+from .. import on_card, refuse_grad
 from ..build import load
 from .ref import attention_ref
 
@@ -115,8 +116,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q: (B, Sq, H, hd); k/v: (B, Sk, Hkv, hd) -> (B, Sq, H, hd).
 
     The CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
-    if q.device.type == "cpu":
+    if not on_card(q):
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap)
+    refuse_grad("flash_attention", "train with use_flash=False (the "
+                "reference's Pallas kernel has no VJP either)", q, k, v)
     return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                 softcap=softcap)

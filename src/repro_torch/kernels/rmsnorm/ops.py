@@ -5,6 +5,12 @@ A CUDA tensor goes to the hand-written Hopper kernel (``csrc/rmsnorm.cu``),
 launched on the current stream.  A CPU tensor goes to the plain PyTorch
 version (``ref.rmsnorm_ref``).  There is no other path: a CUDA input the
 kernel does not take raises.
+
+Under autograd (grad enabled and ``x`` or ``scale`` requiring it) a CUDA
+call goes through ``RMSNormFn``: the same kernel forward, and the closed-form
+backward in float32 as PyTorch ops (with rstd = rsqrt(mean(x²) + eps),
+x̂ = x·rstd and s the scale: dx = rstd·(g·s − x̂·mean(g·s·x̂)), dscale =
+Σ g·x̂).  The CPU path stays the plain version under plain autograd.
 """
 from __future__ import annotations
 
@@ -13,6 +19,7 @@ import threading
 
 import torch
 
+from .. import on_card
 from ..build import load
 from .ref import rmsnorm_ref
 
@@ -76,10 +83,37 @@ def rmsnorm_cuda(x, scale, eps: float = 1e-6) -> torch.Tensor:
     return y.reshape(x.shape)
 
 
+class RMSNormFn(torch.autograd.Function):
+    """The kernel's forward with a closed-form backward.  Saves x and the
+    scale; the backward recomputes the per-row rstd in float32."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps: float):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm_cuda(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, scale = ctx.saved_tensors
+        d = x.shape[-1]
+        xf = x.reshape(-1, d).float()
+        rstd = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + ctx.eps)
+        xhat = xf * rstd
+        g = gy.reshape(-1, d).float()
+        gs = g * scale.float()
+        dx = rstd * (gs - xhat * (gs * xhat).mean(-1, keepdim=True))
+        dscale = (g * xhat).sum(0)
+        return dx.reshape(x.shape).to(x.dtype), dscale.to(scale.dtype), None
+
+
 def rmsnorm(x, scale, eps: float = 1e-6) -> torch.Tensor:
     """x: (..., d); scale: (d,) -> x's shape and dtype.
 
-    The CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
-    if x.device.type == "cpu":
+    The CUDA kernel for CUDA tensors (through ``RMSNormFn`` where autograd
+    needs the gradient), the plain version for CPU tensors."""
+    if not on_card(x):
         return rmsnorm_ref(x, scale, eps)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return RMSNormFn.apply(x, scale, eps)
     return rmsnorm_cuda(x, scale, eps)

@@ -17,6 +17,7 @@ import threading
 
 import torch
 
+from .. import on_card, refuse_grad
 from ..build import load
 from .ref import wkv6_ref
 
@@ -144,6 +145,8 @@ def wkv6(r, k, v, w, u, s0):
     Returns (y (B, T, H*hd) in r's dtype, s_final (B, H, hd, hd) float32).
 
     The CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
-    if r.device.type == "cpu":
+    if not on_card(r):
         return wkv6_plain(r, k, v, w, u, s0)
+    refuse_grad("wkv6", "rwkv6 trains on the CPU only until the recurrence "
+                "has one", r, k, v, w, u, s0)
     return wkv6_cuda(r, k, v, w, u, s0)

@@ -3,8 +3,12 @@
 The causal full-sequence path goes to the hand-written flash kernel
 (``kernels/flash_attention``) when ``use_flash`` is set; otherwise it takes
 the materialized ``_sdpa`` or, for long sequences, the blocked
-``_sdpa_chunked`` — both plain PyTorch forwards with the reference's
-numerics (bf16 operands, f32 scores and softmax).
+``_sdpa_chunked`` — both plain PyTorch with the reference's numerics (bf16
+operands, f32 scores and softmax).  Autograd differentiates ``_sdpa``
+directly; ``_sdpa_chunked`` is ``ChunkedAttention``, whose backward
+recomputes score blocks as the reference's custom VJP does.  The flash
+kernel has no backward (nor has the reference's): a CUDA call under grad
+raises.
 """
 from __future__ import annotations
 
@@ -72,9 +76,31 @@ def _sdpa(cfg, q, k, v, mask):
     return o.reshape(B, Sq, H * hd)
 
 
+def _block_scores(qblk, kblk, qi, kj, q_chunk, kv_chunk, *, causal, window,
+                  softcap):
+    """Masked (softcapped) score block in f32, (B, Hkv, g, qc, kc).  qblk
+    pre-scaled.  Returns (s, the softcap's tanh or None, mask)."""
+    dev = qblk.device
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qblk.float(), kblk.float())
+    t = None
+    if softcap > 0:
+        t = torch.tanh(s / softcap)
+        s = t * softcap
+    q_pos = qi * q_chunk + torch.arange(q_chunk, device=dev)
+    k_pos = kj * kv_chunk + torch.arange(kv_chunk, device=dev)
+    mask = torch.ones((q_chunk, kv_chunk), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= k_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        mask &= (q_pos[:, None] - k_pos[None, :]) < window
+    s = torch.where(mask[None, None, None], s, NEG_INF)
+    return s, t, mask
+
+
 def _chunked_forward(q, k, v, causal, window, softcap, q_chunk, kv_chunk):
     """Blocked online-softmax attention (the forward of the reference's
-    ``_chunked_attention``): the (Sq, Skv) scores never materialize."""
+    ``_chunked_attention``): the (Sq, Skv) scores never materialize.
+    Returns (out (B, Sq, H*hd) in q's dtype, lse (B, Hkv, g, Sq) f32)."""
     B, Sq, H, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     g = H // Hkv
@@ -82,10 +108,9 @@ def _chunked_forward(q, k, v, causal, window, softcap, q_chunk, kv_chunk):
     scale = hd ** -0.5
     dev = q.device
     qs = (q * scale).reshape(B, Sq, Hkv, g, hd)
-    outs = []
+    outs, lses = [], []
     for qi in range(nq):
-        qblk = qs[:, qi * q_chunk:(qi + 1) * q_chunk].float()
-        q_pos = qi * q_chunk + torch.arange(q_chunk, device=dev)
+        qblk = qs[:, qi * q_chunk:(qi + 1) * q_chunk]
         m = torch.full((B, Hkv, g, q_chunk), NEG_INF, dtype=torch.float32,
                        device=dev)
         l = torch.zeros((B, Hkv, g, q_chunk), dtype=torch.float32, device=dev)
@@ -94,17 +119,9 @@ def _chunked_forward(q, k, v, causal, window, softcap, q_chunk, kv_chunk):
         for kj in range(nk):
             kblk = k[:, kj * kv_chunk:(kj + 1) * kv_chunk]
             vblk = v[:, kj * kv_chunk:(kj + 1) * kv_chunk]
-            s = torch.einsum("bqhgd,bkhd->bhgqk", qblk, kblk.float())
-            if softcap > 0:
-                s = torch.tanh(s / softcap) * softcap
-            k_pos = kj * kv_chunk + torch.arange(kv_chunk, device=dev)
-            mask = torch.ones((q_chunk, kv_chunk), dtype=torch.bool,
-                              device=dev)
-            if causal:
-                mask &= k_pos[None, :] <= q_pos[:, None]
-            if window > 0:
-                mask &= (q_pos[:, None] - k_pos[None, :]) < window
-            s = torch.where(mask[None, None, None], s, NEG_INF)
+            s, _, _ = _block_scores(qblk, kblk, qi, kj, q_chunk, kv_chunk,
+                                    causal=causal, window=window,
+                                    softcap=softcap)
             m_new = torch.maximum(m, s.amax(-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -113,8 +130,96 @@ def _chunked_forward(q, k, v, causal, window, softcap, q_chunk, kv_chunk):
             acc = acc * corr[..., None] + pv
             m = m_new
         out = acc / torch.clamp(l, min=1e-30)[..., None]
+        lses.append(m + torch.log(torch.clamp(l, min=1e-30)))
         outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, q_chunk, H * hd))
-    return torch.cat(outs, dim=1).to(q.dtype)
+    return (torch.cat(outs, dim=1).to(q.dtype), torch.cat(lses, dim=-1))
+
+
+def _chunked_backward(q, k, v, out, lse, dout, causal, window, softcap,
+                      q_chunk, kv_chunk):
+    """The reference's ``_chunked_bwd``: D = rowsum(dO·O), then a dq pass
+    over q blocks and a dk/dv pass over kv blocks, each recomputing its
+    score blocks from q, k and the saved log-sum-exp."""
+    B, Sq, H, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    nq, nk = Sq // q_chunk, Skv // kv_chunk
+    scale = hd ** -0.5
+
+    do = dout.reshape(B, Sq, Hkv, g, hd).float()
+    og = out.reshape(B, Sq, Hkv, g, hd).float()
+    D = torch.einsum("bqhgd,bqhgd->bhgq", do, og)          # (B, Hkv, g, Sq)
+    qs = (q * scale).reshape(B, Sq, Hkv, g, hd)
+
+    def q_rows(t, qi):
+        return t[:, qi * q_chunk:(qi + 1) * q_chunk]
+
+    def kv_rows(t, kj):
+        return t[:, kj * kv_chunk:(kj + 1) * kv_chunk]
+
+    def p_and_ds(qi, kj):
+        qblk, doblk = q_rows(qs, qi), q_rows(do, qi)
+        kblk, vblk = kv_rows(k, kj), kv_rows(v, kj)
+        sl = slice(qi * q_chunk, (qi + 1) * q_chunk)
+        s, t, mask = _block_scores(qblk, kblk, qi, kj, q_chunk, kv_chunk,
+                                   causal=causal, window=window,
+                                   softcap=softcap)
+        p = torch.exp(s - lse[..., sl, None])                # (B,h,g,qc,kc)
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", doblk, vblk.float())
+        ds = p * (dp - D[..., sl, None])
+        if softcap > 0:
+            ds = ds * (1.0 - t * t)          # the softcap's tanh gradient
+        ds = torch.where(mask[None, None, None], ds, 0.0)
+        return p, ds
+
+    # pass 1: dq, over q blocks (inner over kv)
+    dqs = []
+    for qi in range(nq):
+        dq = torch.zeros((B, q_chunk, Hkv, g, hd), dtype=torch.float32,
+                         device=q.device)
+        for kj in range(nk):
+            _, ds = p_and_ds(qi, kj)
+            dq = dq + torch.einsum("bhgqk,bkhd->bqhgd", ds,
+                                   kv_rows(k, kj).float())
+        dqs.append(dq * scale)
+    dq = torch.cat(dqs, dim=1).reshape(B, Sq, H, hd).to(q.dtype)
+
+    # pass 2: dk/dv, over kv blocks (inner over q)
+    dks, dvs = [], []
+    for kj in range(nk):
+        dk = torch.zeros((B, kv_chunk, Hkv, hd), dtype=torch.float32,
+                         device=k.device)
+        dv = torch.zeros_like(dk)
+        for qi in range(nq):
+            p, ds = p_and_ds(qi, kj)
+            dk = dk + torch.einsum("bhgqk,bqhgd->bkhd", ds,
+                                   q_rows(qs, qi).float())
+            dv = dv + torch.einsum("bhgqk,bqhgd->bkhd", p, q_rows(do, qi))
+        dks.append(dk)
+        dvs.append(dv)
+    dk = torch.cat(dks, dim=1).to(k.dtype)
+    dv = torch.cat(dvs, dim=1).to(v.dtype)
+    return dq, dk, dv
+
+
+class ChunkedAttention(torch.autograd.Function):
+    """The reference's ``_chunked_attention`` with its custom VJP: the
+    forward saves q, k, v, the output and the per-row log-sum-exp, and the
+    backward recomputes the score blocks (O(S·d) memory, not O(S²))."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, q_chunk, kv_chunk):
+        out, lse = _chunked_forward(q, k, v, causal, window, softcap,
+                                    q_chunk, kv_chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = (causal, window, softcap, q_chunk, kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _chunked_backward(q, k, v, out, lse, dout, *ctx.opts)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def _sdpa_chunked(cfg, q, k, v, *, causal: bool = True, window: int = 0,
@@ -126,8 +231,8 @@ def _sdpa_chunked(cfg, q, k, v, *, causal: bool = True, window: int = 0,
         q_chunk //= 2
     while Skv % kv_chunk:
         kv_chunk //= 2
-    return _chunked_forward(q, k, v, causal, window,
-                            float(cfg.logit_softcap), q_chunk, kv_chunk)
+    return ChunkedAttention.apply(q, k, v, causal, window,
+                                  float(cfg.logit_softcap), q_chunk, kv_chunk)
 
 
 def causal_mask(Sq: int, Skv: int, window: int = 0, offset: int = 0,
@@ -144,7 +249,7 @@ def causal_mask(Sq: int, Skv: int, window: int = 0, offset: int = 0,
 
 def attend_full(cfg, p: Attention, x, positions, *, window: int = 0,
                 use_flash: bool = False, bidirectional: bool = False):
-    """Self-attention over a full sequence (prefill).
+    """Self-attention over a full sequence (train / prefill).
 
     Returns (out, (k, v)) so prefill can seed the decode cache.
     """

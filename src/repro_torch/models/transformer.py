@@ -17,9 +17,14 @@ caller passes one, and dropped otherwise (serving).
 Numerics follow the reference: f32 parameters cast at every matmul, a bf16
 residual stream from the embedding on, bf16 caches and f32 logits.
 
-Two entry points per model, as serving needs them:
+Three entry points per model:
+* ``forward_train``  — full-sequence logits (+ MoE aux losses), under
+  autograd; ``remat=True`` recomputes each block in the backward pass;
 * ``forward_prefill``— full sequence, returns last-token logits + caches;
 * ``forward_decode`` — one token against the caches.
+
+Parameters are created with ``requires_grad=False``, for serving; a trainer
+makes them trainable (``make_train_step`` does).
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from typing import Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as A
 from . import moe as MOE
@@ -112,6 +118,12 @@ class LM(nn.Module):
         self.blocks = nn.ModuleList(
             Block(cfg, kind, generator, device, dtype)
             for kind in stack_kinds(cfg))
+
+    def reference_ndim(self, name: str) -> int:
+        """The rank of parameter ``name`` in the reference's layout, which
+        stacks every block parameter with a leading layer-group axis (the
+        optimizer's weight decay and q8 moments follow that rank)."""
+        return self.get_parameter(name).dim() + name.startswith("blocks.")
 
 
 def init_lm(cfg: ArchConfig, generator: torch.Generator,
@@ -248,3 +260,58 @@ def forward_decode(cfg: ArchConfig, params: LM, tokens, cache, pos: int):
         x = apply_block_decode(cfg, blk, x, c, pos)
     x = params.final_norm(x)
     return _logits(cfg, params, x)[:, 0], cache
+
+
+# ----------------------------------------------------------------------
+# training
+# ----------------------------------------------------------------------
+def _train_block(cfg, blk: Block, x, positions, use_flash: bool):
+    """One block of ``forward_train``: (x, moe_aux, moe_z).  The aux losses
+    are outputs, not additions to a caller's dict, so that remat's
+    recompute adds nothing twice."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if blk.kind == "rwkv":
+        state = R.init_rwkv_state(cfg, x.shape[0], x.device)
+        state["cmix_shift"] = torch.zeros((x.shape[0], cfg.d_model),
+                                          dtype=torch.float32,
+                                          device=x.device)
+        return _apply_rwkv_block(cfg, blk, x, state, seq=True), zero, zero
+    aux: dict = {}
+    x = apply_block_seq(cfg, blk, x, positions, use_flash=use_flash, aux=aux)
+    return x, aux.get("moe_aux", zero), aux.get("moe_z", zero)
+
+
+def forward_train(cfg: ArchConfig, params: LM, batch, use_flash: bool = False,
+                  remat: bool = False):
+    """batch: dict(tokens (B,S) int).
+    Returns (logits_f32 (B,S,V), {"moe_aux", "moe_z"} f32 scalars).
+    ``remat=True`` checkpoints each block (recompute in backward) to bound
+    activation memory, as the reference checkpoints each scanned group."""
+    tokens = batch["tokens"]
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    moe_aux = moe_z = torch.zeros((), dtype=torch.float32, device=x.device)
+    for blk in params.blocks:
+        if remat:
+            x, a, z = checkpoint(_train_block, cfg, blk, x, positions,
+                                 use_flash, use_reentrant=False,
+                                 preserve_rng_state=False)
+        else:
+            x, a, z = _train_block(cfg, blk, x, positions, use_flash)
+        moe_aux = moe_aux + a
+        moe_z = moe_z + z
+    x = params.final_norm(x)
+    return _logits(cfg, params, x), {"moe_aux": moe_aux, "moe_z": moe_z}
+
+
+def cross_entropy_loss(logits, labels, z_loss: float = 1e-4):
+    """logits (B,S,V) f32; labels (B,S) int; returns the scalar mean loss
+    plus ``z_loss`` times the mean squared log-partition, as the
+    reference.  The gold logit is a gather, where the reference uses a
+    one-hot reduction for its sharded vocab axis: the values are the same."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    loss = torch.mean(lse - gold)
+    if z_loss:
+        loss = loss + z_loss * torch.mean(lse ** 2)
+    return loss

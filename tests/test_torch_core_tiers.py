@@ -7,9 +7,9 @@ tier's strict sim-makespan win over flat D2H, physical round trips on the
 real executor for every tier (disk and lossless-compressed bit-exact,
 bf16 within its designed bound), stack ordering (capacity overflow to the
 next tier), spool-file hygiene (shutdown + GC), the ``verify()`` debug
-hook and capture/replay under a tier stack.  The reference's two
-checkpoint snapshot-through-spill tests wait for the port's checkpoint
-manager (ROADMAP A.5).
+hook, capture/replay under a tier stack, and the checkpoint manager's
+snapshot-through-spill (hard-linked disk spills, nondestructive reads of
+the compressed tier).
 """
 import gc
 import glob
@@ -20,6 +20,7 @@ import pytest
 
 from _torch_memory_check import _verify_torch_memory_accounting  # noqa: F401
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.benchsuite.outofcore import (build_outofcore, verify_outofcore,
                                               working_set_bytes)
 from repro_torch.core import (CompressedHostTier, DiskTier, ElementKind,
@@ -354,6 +355,70 @@ def test_capture_replays_tier_spills():
                 y.read(), np.full(N, 2.0 * ep + 1.0, np.float32))
             np.testing.assert_array_equal(
                 y2.read(), np.full(N, 2.0 * (ep + 10) + 1.0, np.float32))
+        assert s.memory.verify().ok
+    finally:
+        s.shutdown()
+
+
+# ======================================================================
+# Snapshot-through-spill (checkpoint integration)
+# ======================================================================
+
+def test_save_managed_hard_links_disk_spills(tmp_path):
+    """A disk-resident block is checkpointed by hard-linking the published
+    spool file — zero data movement — and restores bit-exact; the spill
+    stays resident (the checkpoint is a copy-on-write reference)."""
+    tier = DiskTier(spool_dir=str(tmp_path / "spool"))
+    s = make_scheduler("parallel", memory_budget=2 * CHUNK,
+                       spill_tiers=[tier], device="cpu")
+    mgr = CheckpointManager(str(tmp_path / "ckpt"), async_save=False)
+    try:
+        x = s.array(np.arange(N, dtype=np.float32), name="sl_x")
+        y = _stage(s)(x)
+        x2 = s.array(np.ones(N, np.float32), name="sl_x2")
+        y2 = _stage(s)(x2)                   # y spilled to disk
+        s.sync()
+        assert y.backing_tier == "disk"
+        expect_y = np.arange(N, dtype=np.float32) * 2.0 + 1.0
+        stats = mgr.save_managed(7, {"y": y, "y2": y2})
+        assert stats["spill_links"] == 1
+        assert stats["spill_link_bytes"] == y.nbytes
+        assert y.backing_tier == "disk"      # spill undisturbed
+        # The link shares the spool inode (metadata-only snapshot).
+        ckpt_file = os.path.join(str(tmp_path / "ckpt"), "step_7", "y.npy")
+        from repro_torch.core.element import dep_key
+        spool_file = tier.path_for(dep_key(y))
+        assert os.path.samefile(ckpt_file, spool_file)
+        # Restore into fresh arrays: bit-exact through the link.
+        ny = s.array(np.zeros(N, np.float32), name="sl_ny")
+        ny2 = s.array(np.zeros(N, np.float32), name="sl_ny2")
+        mgr.restore_managed({"y": ny, "y2": ny2}, step=7)
+        np.testing.assert_array_equal(ny.read(), expect_y)
+        np.testing.assert_array_equal(ny2.read(), np.full(N, 3.0, np.float32))
+        assert s.memory.verify().ok
+    finally:
+        s.shutdown()
+
+
+def test_save_managed_reads_compressed_tier_nondestructively(tmp_path):
+    tier = CompressedHostTier(lossy=False)
+    s = make_scheduler("parallel", memory_budget=2 * CHUNK,
+                       spill_tiers=[tier], device="cpu")
+    mgr = CheckpointManager(str(tmp_path / "ckpt"), async_save=False)
+    try:
+        x = s.array(np.arange(N, dtype=np.float32), name="tr_x")
+        y = _stage(s)(x)
+        x2 = s.array(np.ones(N, np.float32), name="tr_x2")
+        _stage(s)(x2)                        # y spilled (compressed)
+        s.sync()
+        assert y.backing_tier == "compressed-host"
+        stats = mgr.save_managed(1, {"y": y})
+        assert stats["tier_reads"] == 1 and stats["spill_links"] == 0
+        assert y.backing_tier == "compressed-host"   # peek, not reload
+        ny = s.array(np.zeros(N, np.float32), name="tr_ny")
+        mgr.restore_managed({"y": ny}, step=1)
+        np.testing.assert_array_equal(
+            ny.read(), np.arange(N, dtype=np.float32) * 2.0 + 1.0)
         assert s.memory.verify().ok
     finally:
         s.shutdown()

@@ -14,10 +14,14 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
-# Modules of the daemon and MoE slice, named so that a missing one fails.
+# Modules of the daemon, MoE and training slices, named so that a missing
+# one fails.
 NEW_MODULES = tuple(f"repro_torch.daemon.{m}" for m in (
     "cli", "client", "jobs", "lifecycle", "monitor", "policy", "server",
-    "store", "wire", "__main__")) + ("repro_torch.models.moe",)
+    "store", "wire", "__main__")) + ("repro_torch.models.moe",) + tuple(
+    f"repro_torch.{m}" for m in (
+        "optim", "optim.adamw", "data", "data.pipeline", "checkpoint",
+        "checkpoint.manager", "runtime.trainer", "launch", "launch.train"))
 
 
 def _port_sources():
@@ -71,7 +75,7 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     from repro_torch.core import GrScheduler, make_scheduler
     from repro_torch.daemon import DaemonServer
     from repro_torch.models import from_jax_params, init_lm
-    from repro_torch.runtime import ServingEngine
+    from repro_torch.runtime import ServingEngine, TaskGraphTrainer
 
     cfg, model = _tiny_cpu_model()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -87,10 +91,16 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         from_jax_params({"embed": np.zeros((1, 1), np.float32)}, cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         DaemonServer(os.path.join(str(tmp_path), "d.sock"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        TaskGraphTrainer(cfg)
+    from repro_torch.launch import train
+    with pytest.raises(SystemExit, match="cuda"):
+        train.main(["--reduced", "--steps", "1"])
     # The simulator needs no device; the CPU is there when asked for.
     make_scheduler(simulate=True).close()
     make_scheduler(device="cpu").close()
     ServingEngine(cfg, model, device="cpu").close()
+    TaskGraphTrainer(cfg, device="cpu").sched.shutdown()
 
 
 def test_port_raises_for_what_it_has_not_ported():
