@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eight phases, each of which raises on failure (nothing is caught):
+Nine phases, each of which raises on failure (nothing is caught):
 
 1. build: compiles every CUDA kernel of the port from ``src/repro_torch``
    with ``nvcc`` (one process per source, all at once) into ``build/``,
@@ -79,9 +79,22 @@ Eight phases, each of which raises on failure (nothing is caught):
    scheduler's stats, and with ``--profile`` one step under the profiler;
    (c) ``python -m repro_torch.launch.train --reduced`` on the card, 12
    steps, then 6 and 12 resumed from its checkpoint: the resumed
-   ``step N:`` lines equal the uninterrupted ones.
+   ``step N:`` lines equal the uninterrupted ones;
+9. families, in a process of its own: (a) ``hymba_1_5b`` as published (32
+   hybrid layers of sliding-window attention and Mamba heads, 6.6 GB f32)
+   serves 8 requests of 2048 tokens (the window of 1024 binds in the flash
+   kernel and prefill rolls the ring buffer), with the prefill logits of
+   flash against plain attention after 2 and 32 layers in float32 and
+   bf16, the launch counts, and the serial policy against four lanes in
+   turns; (b) ``python -m repro_torch.launch.serve`` on
+   ``seamless_m4t_medium`` as published, as a subprocess whose lines go
+   through and whose exit code is asserted; (c) ``internvl2_76b`` at full
+   width cut to 8 of its 80 layers (bf16, 18 GB) through
+   ``launch.serve.generate`` with its 256 patch embeddings: the patch
+   positions, RMSNorm on bf16 scales against its plain version, the
+   launch counts.
 
-Each serving phase, and phase 8b's first run, sets every kernel's launch
+Each serving phase, phase 8b's first run and 9c's launcher run set every kernel's launch
 count to 0 just before it runs and reads the counts just after.
 ``--profile`` adds, to each serving phase, two warm runs, the second under
 ``torch.profiler``, and runs under the serial policy; to phase 8b one
@@ -120,13 +133,16 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}     # as tests/test_kernels.py
 WKV_ATOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
 # The kernel phase: (name, B, S, H, Hkv, hd, dtype, causal, window, softcap).
-# The first two cases are the shapes the serving phases give the kernel
-# (qwen3: GQA groups of 8; qwen2-moe: MHA, H = Hkv = 16), both timed; the
+# The first three cases are the shapes the serving phases give the kernel
+# (qwen3: GQA groups of 8; qwen2-moe: MHA, H = Hkv = 16; hymba: groups of 5
+# at hd 64 with a window of 1024 that binds at S 2048), each timed; the
 # first is the row's timing.
 FLASH_CASES = [
     ("qwen3_32b prefill", 2, 1024, 64, 8, 128, "bfloat16", True, 0, 0.0),
     ("qwen2_moe prefill MHA", 2, 1024, 16, 16, 128, "bfloat16", True, 0,
      0.0),
+    ("hymba_1_5b prefill window", 2, 2048, 25, 5, 64, "bfloat16", True,
+     1024, 0.0),
     ("gemma3 local hd256", 2, 2048, 16, 8, 256, "bfloat16", True, 1024, 0.0),
     ("softcap MQA ragged", 1, 1000, 8, 1, 64, "bfloat16", True, 0, 30.0),
     ("f32 window ragged", 1, 333, 4, 2, 128, "float32", True, 100, 0.0),
@@ -146,15 +162,19 @@ WKV_CASES = [
 # The WKV6 kernel's instantiations: r/k/v type x head dim x with or without
 # the asynchronous copies.  ptxas must report no spill in any of them.
 WKV_KERNELS = 12
-# (name, shape of x, dtype); scale is float32.  All but the last are the
-# shapes of the qwen3 and qwen2-moe serving phases, each timed; the first
-# is the row's timing.
+# (name, shape of x, dtype[, dtype of the scale: float32 where not given]).
+# All but the last are the shapes of the serving phases (qwen3, qwen2-moe,
+# hymba, and internvl's bf16 scales from the serving launcher's bf16
+# weights), each timed; the first is the row's timing.
 RMS_CASES = [
     ("qwen3_32b prefill Norm", (2048, 5120), "bfloat16"),
     ("qwen3_32b prefill q-norm", (131072, 128), "bfloat16"),
     ("qwen3_32b decode Norm", (2, 5120), "bfloat16"),
     ("qwen2_moe prefill Norm", (2048, 2048), "bfloat16"),
     ("qwen2_moe decode Norm", (2, 2048), "bfloat16"),
+    ("hymba_1_5b prefill Norm", (4096, 1600), "bfloat16"),
+    ("hymba_1_5b decode Norm", (2, 1600), "bfloat16"),
+    ("internvl2_76b prefill Norm", (2048, 8192), "bfloat16", "bfloat16"),
     ("f32 d=1001", (37, 1001), "float32"),
 ]
 RMS_TIMED = len(RMS_CASES) - 1
@@ -242,16 +262,21 @@ def time_ms(fn, iters: int, warmup: int = 2, args=((),),
     return start.elapsed_time(end) / iters
 
 
-def visible_pairs(S: int, causal: bool, window: int) -> int:
-    import numpy as np
-    q = np.arange(S)[:, None]
-    k = np.arange(S)[None, :]
-    mask = np.ones((S, S), bool)
+def visible_mask(S: int, causal: bool, window: int):
+    """(S, S) boolean on the card: query i sees key j."""
+    import torch
+    q = torch.arange(S, device="cuda")[:, None]
+    k = torch.arange(S, device="cuda")[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device="cuda")
     if causal:
         mask &= k <= q
     if window > 0:
         mask &= (q - k) < window
-    return int(mask.sum())
+    return mask
+
+
+def visible_pairs(S: int, causal: bool, window: int) -> int:
+    return int(visible_mask(S, causal, window).sum())
 
 
 def sass_counts(lib_path) -> dict:
@@ -352,8 +377,12 @@ def phase_flash(sass: dict) -> dict:
             f"flash_attention {label}: B={B} S={S} H={H} Hkv={Hkv} hd={hd} "
             f"{dt} causal={causal} window={window} softcap={softcap}", got,
             ref, TOL[dt], TOL[dt]))
-        if i < 2:   # the serving shapes
+        if i < 3:   # the serving shapes
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            # SDPA with the same mask: is_causal without a window, else
+            # the causal window as a boolean mask
+            lib_mask = dict(is_causal=True) if not window else dict(
+                attn_mask=visible_mask(S, causal, window))
             kernel_ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw),
                                 iters=20)
             eager_ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw),
@@ -361,7 +390,7 @@ def phase_flash(sass: dict) -> dict:
             plain_ms = time_ms(lambda: attention_ref(q, k, v, **kw), iters=5)
             library_ms = time_ms(
                 lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)
+                    qt, kt, vt, enable_gqa=True, **lib_mask), iters=20)
             flops = 4 * B * H * hd * visible_pairs(S, causal, window)
             nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, got))
             timing = dict(shape=label, ms=kernel_ms, eager_ms=eager_ms,
@@ -380,7 +409,7 @@ def phase_flash(sass: dict) -> dict:
                 replaces="src/repro/kernels/flash_attention/kernel.py:30",
                 max_abs_err=worst,
                 **{k: v for k, v in timed[0].items() if k != "shape"},
-                mha=timed[1], bf16_kernel="flash_fwd_wgmma_kernel",
+                mha=timed[1], hymba=timed[2], bf16_kernel="flash_fwd_wgmma_kernel",
                 f32_kernel="flash_fwd_simt_kernel", sass=sass)
 
 
@@ -480,19 +509,22 @@ def phase_rmsnorm() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst, shapes = 0.0, []
-    for i, (label, shape, dt) in enumerate(RMS_CASES):
+    for i, (label, shape, dt, *scale_dt) in enumerate(RMS_CASES):
         dtype = getattr(torch, dt)
+        sdt = scale_dt[0] if scale_dt else "float32"
         x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-        scale = torch.randn(shape[-1], generator=gen, device="cuda") * 0.1 + 1
+        scale = (torch.randn(shape[-1], generator=gen, device="cuda") * 0.1
+                 + 1).to(getattr(torch, sdt))
         got = ops.rmsnorm(x, scale)
         torch.cuda.synchronize()
         worst = max(worst, check_close(
-            f"rmsnorm {label}: x {shape} {dt}, scale f32", got,
+            f"rmsnorm {label}: x {shape} {dt}, scale {sdt}", got,
             rmsnorm_ref(x.float(), scale), TOL[dt], TOL[dt]))
         if i >= RMS_TIMED:
             continue
         # Time the serving shapes, each call on inputs out of L2.
-        nbytes = 2 * x.numel() * x.element_size() + scale.numel() * 4
+        nbytes = (2 * x.numel() * x.element_size()
+                  + scale.numel() * scale.element_size())
         copies = [(x.clone(), scale)
                   for _ in range(min(16, int(1e8 // nbytes) + 1))]
         kernel_ms = time_ms(ops.rmsnorm, iters=50, args=copies)
@@ -501,7 +533,8 @@ def phase_rmsnorm() -> dict:
         lib_args = [(c, (shape[-1],), scale.to(dtype), 1e-6)
                     for c, _ in copies]
         library_ms = time_ms(F.rms_norm, iters=50, args=lib_args)
-        row = dict(shape=list(shape), ms=kernel_ms, eager_ms=eager_ms,
+        row = dict(shape=list(shape), scale=sdt, ms=kernel_ms,
+                   eager_ms=eager_ms,
                    plain_ms=plain_ms, library_ms=library_ms,
                    **bound(4 * x.numel(), nbytes, PEAK_F32_FLOPS))
         print(f"[kernels] rmsnorm {label}: kernel {kernel_ms:.4f} ms (issued "
@@ -510,7 +543,8 @@ def phase_rmsnorm() -> dict:
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {nbytes:.4e} B)")
         shapes.append(row)
         del copies, lib_args
-    timing = {k: v for k, v in shapes[0].items() if k != "shape"}
+    timing = {k: v for k, v in shapes[0].items()
+              if k not in ("shape", "scale")}
     return dict(name="rmsnorm", route="cuda",
                 source="src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
                 replaces="src/repro/kernels/rmsnorm/kernel.py:16",
@@ -632,11 +666,11 @@ def check_logits(tag: str, what: str, got, want,
 
 
 def logits_by_depth(cfg, model, toks, depths, dtype, use_flash=False,
-                    aux=None) -> dict:
+                    aux=None, patches=None) -> dict:
     """The prefill's last-token logits read out (final norm and head)
     after each of ``depths`` blocks, with the residual stream in
     ``dtype``; an MoE model adds its aux losses and kept-token counts to
-    ``aux`` where one is given."""
+    ``aux`` where one is given; a vision model takes ``patches``."""
     import torch
     from repro_torch.models import init_cache
     from repro_torch.models import transformer as T
@@ -644,7 +678,7 @@ def logits_by_depth(cfg, model, toks, depths, dtype, use_flash=False,
     positions = torch.arange(plen, device=toks.device)[None, :]
     out = {}
     with torch.no_grad():
-        x = T._embed(cfg, model, toks).to(dtype)
+        x = T._embed(cfg, model, toks, patches).to(dtype)
         for i, (blk, c) in enumerate(
                 zip(model.blocks, init_cache(cfg, B, plen, toks.device)), 1):
             x = T.apply_block_seq(cfg, blk, x, positions, cache=c,
@@ -2219,6 +2253,291 @@ def phase_train(card: str, profile: bool = False) -> dict:
     return launches
 
 
+# The families phase, in a process of its own.  9a: hymba_1_5b as published
+# through the serving engine, prompts of 2048 tokens so that the window of
+# 1024 binds in flash and prefill rolls the ring buffer; 9b: the serving
+# launcher on seamless_m4t_medium as published, as a subprocess; 9c:
+# internvl2_76b at full width cut to 8 of its 80 layers (full depth is 141
+# GB of bf16 weights, over the card's 80 GB) through the launcher's
+# function, with its 256 patch embeddings.
+FAMILIES_ONLY = "--phase-9-process"
+HYMBA_PLEN = 2048
+INTERNVL_LAYERS = 8
+LAUNCH_PLEN = 1024
+# Flash against plain attention in hymba's prefill, read out after 2 and
+# 32 layers.  With float32 activations only the kernel's float32 sums in
+# another order differ (held at 1e-3, as phase 4 holds WKV6).  With bf16
+# activations the two paths round at different places and depth
+# amplifies that; the plain path's own bf16 rounding, measured in the same
+# run as its distance from the float32 path, is the drift that depth gives
+# bf16 here: each depth holds the larger of 2e-2 and that drift.
+HYMBA_DEPTHS = (2, 32)
+F32_LOGIT_TOL = 1e-3
+
+
+def policy_walls(tag: str, cfg, model, prompts, batch: int, new: int,
+                 card: str) -> dict:
+    """The same requests under the serial policy, then the parallel one,
+    each on a new engine (after ``serve_and_check``'s parallel run, so
+    the turns are parallel, serial, parallel): {policy: wall}."""
+    import torch
+    from repro_torch.core import make_scheduler
+    from repro_torch.runtime import ServingEngine
+    engines = {p: ServingEngine(cfg, model, batch_size=batch,
+                                max_new_tokens=new,
+                                scheduler=make_scheduler(p))
+               for p in ("serial", "parallel")}
+    walls = {}
+    for p, eng in engines.items():
+        t0 = time.perf_counter()
+        for q in prompts:
+            eng.submit(q)
+        eng.flush()
+        eng.collect()
+        torch.cuda.synchronize()
+        walls[p] = time.perf_counter() - t0
+        eng.close()
+        eng.sched.close()
+    print(f"[{tag}] serial policy wall {walls['serial']:.4f} s, then four "
+          f"lanes {walls['parallel']:.4f} s ({card})")
+    return walls
+
+
+def phase_hymba(card: str, profile: bool = False) -> dict:
+    """hymba_1_5b as published: 32 hybrid layers, attention (H 25, Hkv 5,
+    hd 64, window 1024) through the flash kernel in parallel with Mamba
+    heads, every norm through RMSNorm."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm
+
+    cfg = get_config("hymba_1_5b")
+    batch, new, plen, n_req = 2, 16, HYMBA_PLEN, 8
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = t0 = time.perf_counter()
+    model = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[hymba] {cfg.name} at full width and depth ({cfg.n_layers} "
+          f"layers, d {cfg.d_model}, H {cfg.n_heads}/{cfg.n_kv_heads}, "
+          f"window {cfg.sliding_window}, Mamba inner "
+          f"{cfg.ssm.expand * cfg.d_model} x state {cfg.ssm.state_dim}): "
+          f"{n_params:,} f32 parameters ({n_params * 4 / 1e9:.2f} GB), init "
+          f"{time.perf_counter() - t0:.2f} s")
+    prompts = make_prompts(cfg, n_req, plen)
+    toks = torch.from_numpy(np.stack(prompts[:batch])).cuda()
+    t0 = time.perf_counter()
+    direct, _ = direct_call(cfg, model, toks, new, use_flash=True)
+    print(f"[hymba] direct prefill and {new - 1} decode steps "
+          f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    runs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for flash in (True, False):
+            runs[dtype, flash] = logits_by_depth(cfg, model, toks,
+                                                 HYMBA_DEPTHS, dtype,
+                                                 use_flash=flash)
+    for n in HYMBA_DEPTHS:
+        check_logits("hymba", f"flash vs plain attention, {n} layers, "
+                     f"float32 activations", runs[torch.float32, True][n],
+                     runs[torch.float32, False][n], F32_LOGIT_TOL)
+        plain32 = runs[torch.float32, False][n]
+        drift = float((runs[torch.bfloat16, False][n] - plain32).abs().max()
+                      / plain32.abs().max())
+        rtol = max(TOL["bfloat16"], drift)
+        print(f"[hymba] plain path, {n} layers: bf16 activations drift "
+              f"{drift:.3e} of the logit scale from float32 ones")
+        check_logits("hymba", f"flash vs plain attention, {n} layers, bf16 "
+                     f"activations", runs[torch.bfloat16, True][n],
+                     runs[torch.bfloat16, False][n], rtol)
+    del runs
+    print(f"[hymba] logits by depth {time.perf_counter() - t0:.2f} s")
+    torch.cuda.synchronize()
+    peak_direct = torch.cuda.max_memory_allocated()
+
+    t0 = time.perf_counter()
+    launches = serve_and_check("hymba", cfg, model, prompts, batch, new,
+                               direct, card, profile)
+    n_batches = n_req // batch
+    # Per forward call (the prefill and each of new - 1 decode steps): ln1
+    # and ln2 in every layer, and the final norm (no qk-norm; the Mamba
+    # heads have no norm).  One flash call a layer in each prefill.
+    expect_launches(launches, {
+        "flash_attention": cfg.n_layers * n_batches,
+        "rmsnorm": (2 * cfg.n_layers + 1) * new * n_batches,
+        "wkv6": 0})
+    print(f"[hymba] peak device memory of the direct calls "
+          f"{peak_direct / 2**30:.3f} GiB, of the served run "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; serving "
+          f"and checks {time.perf_counter() - t0:.2f} s ({card})")
+    policy_walls("hymba", cfg, model, prompts, batch, new, card)
+    print(f"[hymba] phase 9a {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
+def launcher_seamless(card: str) -> None:
+    """``python -m repro_torch.launch.serve`` on seamless_m4t_medium as
+    published (12 encoder and 12 decoder layers, vocab 256206, bf16
+    weights): its two lines go through unchanged; its exit code is
+    asserted."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    cfg = get_config("seamless_m4t_medium")
+    n = sum(p.numel() for p in LM(cfg, torch.device("meta")).parameters())
+    print(f"[seamless] {cfg.name} as published ({cfg.n_encoder_layers} "
+          f"encoder + {cfg.n_layers} decoder layers, vocab {cfg.vocab}): "
+          f"{n:,} parameters ({n * 2 / 1e9:.2f} GB in bf16)")
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "seamless_m4t_medium", "--batch", "2", "--prompt-len",
+           str(LAUNCH_PLEN), "--new-tokens", "16"]
+    env = dict(os.environ, PYTHONPATH=SRC)
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                         text=True, timeout=600)
+    sys.stdout.write(res.stdout)
+    sys.stderr.write(res.stderr)
+    print(f"[seamless] {' '.join(cmd[1:])}: exit {res.returncode}, "
+          f"{time.perf_counter() - t0:.2f} s with the process start "
+          f"({card})")
+    # numpy wraps the sample of 6-digit token ids over two lines, as the
+    # reference's launcher prints it
+    lines = res.stdout.splitlines()
+    if res.returncode != 0 or not lines or not lines[0].startswith(
+            "device cuda | generated 32 tokens in ") or not lines[
+            1].startswith("sample: ["):
+        raise AssertionError("the serving launcher failed on seamless")
+
+
+def launcher_internvl(card: str) -> dict:
+    """internvl2_76b at full width, 8 of 80 layers, through
+    ``launch.serve.generate`` with its 256 patch embeddings: bf16 weights,
+    so every RMSNorm takes a bf16 scale."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.launch import serve
+    from repro_torch.models import forward_prefill, init_cache, layers
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config("internvl2_76b"),
+                              n_layers=INTERNVL_LAYERS)
+    B, new = 2, 16
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                      # count the main path only
+    out = serve.generate(cfg, batch=B, prompt_len=LAUNCH_PLEN,
+                         new_tokens=new, device="cuda")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    model, dev = out["model"], out["batch"]
+    n = sum(p.numel() for p in model.parameters())
+    toks = B * new
+    print(f"[internvl] {cfg.name} at full width, {cfg.n_layers} of 80 "
+          f"layers: {n:,} bf16 parameters ({n * 2 / 1e9:.2f} GB); prompts "
+          f"of {LAUNCH_PLEN} with {cfg.n_frontend_tokens} patch "
+          f"embeddings: generated {toks} tokens in {out['seconds']:.2f} s "
+          f"({toks / out['seconds']:.1f} tok/s), launches "
+          f"{json.dumps(launches)}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB ({card})")
+    print(f"[internvl] sample: {out['tokens'][0][:12]}")
+    # ln1 and ln2 in each layer and the final norm, per forward call; the
+    # launcher takes plain attention, as the reference's.
+    expect_launches(launches, {"rmsnorm": (2 * cfg.n_layers + 1) * new,
+                               "flash_attention": 0, "wkv6": 0})
+    if out["tokens"].shape != (B, new) or not all(
+            torch.isfinite(lg).all() for lg in out["logits"]):
+        raise AssertionError("internvl: tokens or logits out of shape or "
+                             "not finite")
+    # The patch positions: the first 256 embeddings are the projected
+    # patches, the rest the tokens'; the logits move with the patches.
+    with torch.no_grad():
+        x = T._embed(cfg, model, dev["tokens"], dev["patches"])
+        proj = dev["patches"].bfloat16() @ model.frontend_proj
+        plain = T._embed(cfg, model, dev["tokens"])
+    P = cfg.n_frontend_tokens
+    if not (torch.equal(x[:, :P], proj) and torch.equal(x[:, P:],
+                                                        plain[:, P:])):
+        raise AssertionError("internvl: the patch embeddings do not take "
+                             "the first positions")
+
+    def prefill(batch):
+        cache = init_cache(cfg, B, LAUNCH_PLEN + 1, "cuda")
+        return forward_prefill(cfg, model, batch, cache)[0]
+    first = out["logits"][0]
+    without = prefill({"tokens": dev["tokens"]})
+    moved = float((first - without).abs().max() / first.abs().max())
+    print(f"[internvl] prefill logits without the patches differ by "
+          f"{moved:.3e} of the logit scale")
+    if not moved > 0:
+        raise AssertionError("internvl: the patches do not reach the logits")
+    # The RMSNorm kernel on bf16 scales against its plain version, on the
+    # served depth, held as phase 9a holds flash: with float32
+    # activations at 1e-3; with bf16 ones at the larger of 2e-2 and the
+    # plain path's own bf16 drift from float32 activations.
+    n, args = cfg.n_layers, (cfg, model, dev["tokens"], (cfg.n_layers,))
+    runs = {}
+    for kernel in (True, False):
+        with (contextlib.nullcontext() if kernel else
+              mock.patch.object(layers, "rmsnorm", rmsnorm_ref)):
+            for dtype in (torch.float32, torch.bfloat16):
+                runs[kernel, dtype] = logits_by_depth(
+                    *args, dtype, patches=dev["patches"])[n]
+    print(f"[internvl] prefill logits read out by depth against the "
+          f"launcher's: max abs diff "
+          f"{float((runs[True, torch.bfloat16] - first).abs().max()):.3e}")
+    plain32 = runs[False, torch.float32]
+    check_logits("internvl", f"RMSNorm kernel (bf16 scales) vs its plain "
+                 f"version, {n} layers, float32 activations",
+                 runs[True, torch.float32], plain32, F32_LOGIT_TOL)
+    drift = float((runs[False, torch.bfloat16] - plain32).abs().max()
+                  / plain32.abs().max())
+    print(f"[internvl] plain path, {n} layers: bf16 activations drift "
+          f"{drift:.3e} of the logit scale from float32 ones")
+    check_logits("internvl", f"RMSNorm kernel (bf16 scales) vs its plain "
+                 f"version, {n} layers, bf16 activations",
+                 runs[True, torch.bfloat16], runs[False, torch.bfloat16],
+                 max(TOL["bfloat16"], drift))
+    return launches
+
+
+def phase_families(card: str, profile: bool = False) -> dict:
+    import torch
+    t_phase = time.perf_counter()
+    print(f"[families] device memory allocated at the start: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    hymba = phase_hymba(card, profile)
+    free_card("hymba serving")
+    t0 = time.perf_counter()
+    launcher_seamless(card)
+    print(f"[families] 9b {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    internvl = launcher_internvl(card)
+    free_card("internvl")
+    print(f"[families] 9c {time.perf_counter() - t0:.2f} s")
+    print(f"[families] phase {time.perf_counter() - t_phase:.2f} s")
+    return {"hymba": hymba, "internvl": internvl}
+
+
+def phase_families_process(profile: bool) -> dict:
+    """Phase 9 in a process of its own, as phase 8: returns the kernels'
+    launch counts of 9a's served run and 9c's launcher run, which the
+    child prints on its last line."""
+    cmd = [sys.executable, os.path.abspath(__file__), FAMILIES_ONLY]
+    res = subprocess.run(cmd + (["--profile"] if profile else []),
+                         capture_output=True, text=True, timeout=900)
+    sys.stdout.write(res.stdout)
+    sys.stderr.write(res.stderr)
+    lines = res.stdout.splitlines()
+    if res.returncode != 0 or not lines or not lines[-1].startswith("{"):
+        raise AssertionError(f"phase 9 failed (exit {res.returncode})")
+    return json.loads(lines[-1])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2239,6 +2558,9 @@ def main() -> int:
     if TRAIN_ONLY in sys.argv:          # phase 8's own process
         print(json.dumps(phase_train(card, profile)))
         return 0
+    if FAMILIES_ONLY in sys.argv:       # phase 9's own process
+        print(json.dumps(phase_families(card, profile)))
+        return 0
     t0 = time.perf_counter()
     sass = phase_build()
     rows = [phase_flash(sass), phase_rmsnorm(), phase_wkv6()]
@@ -2256,11 +2578,14 @@ def main() -> int:
     phase_daemon(card)
     free_card("daemon")
     train = phase_train_process(profile)
+    families = phase_families_process(profile)
     for row in rows:
         row["launches"] = (rwkv if row["name"] == "wkv6" else launches)[
             row["name"]]
         row["launches_moe"] = moe[row["name"]]
         row["launches_train"] = train[row["name"]]
+        row["launches_hymba"] = families["hymba"][row["name"]]
+        row["launches_internvl"] = families["internvl"][row["name"]]
         if row["name"] == "wkv6":
             row["launches_decode"] = rwkv["wkv6_t1"]
             row["launches_prefill"] = rwkv["wkv6"] - rwkv["wkv6_t1"]

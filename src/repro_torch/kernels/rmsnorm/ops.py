@@ -6,6 +6,10 @@ launched on the current stream.  A CPU tensor goes to the plain PyTorch
 version (``ref.rmsnorm_ref``).  There is no other path: a CUDA input the
 kernel does not take raises.
 
+The scale may be float32 or bfloat16: the kernel reads float32, so a bf16
+scale is cast first (d elements), as ``repro.models.layers.apply_norm``
+casts it.
+
 Under autograd (grad enabled and ``x`` or ``scale`` requiring it) a CUDA
 call goes through ``RMSNormFn``: the same kernel forward, and the closed-form
 backward in float32 as PyTorch ops (with rstd = rsqrt(mean(x²) + eps),
@@ -57,14 +61,16 @@ def rmsnorm_cuda(x, scale, eps: float = 1e-6) -> torch.Tensor:
         raise TypeError(f"rmsnorm: the CUDA kernel takes float32 or bfloat16 "
                         f"x, got {x.dtype}")
     d = x.shape[-1]
-    if scale.dtype != torch.float32 or tuple(scale.shape) != (d,):
-        raise TypeError(f"rmsnorm: the CUDA kernel takes a float32 scale of "
-                        f"shape ({d},), got {scale.dtype} "
+    if scale.dtype not in _DTYPE_CODES or tuple(scale.shape) != (d,):
+        raise TypeError(f"rmsnorm: the CUDA kernel takes a float32 or "
+                        f"bfloat16 scale of shape ({d},), got {scale.dtype} "
                         f"{tuple(scale.shape)}")
     x2 = x.reshape(-1, d)
     if x2.stride(1) != 1:
         raise ValueError("rmsnorm: the last dim must be contiguous")
-    scale = scale.contiguous()
+    # The kernel reads a float32 scale; a bf16 one (bf16 weights) is cast
+    # first, d elements, as the reference's apply_norm casts it.
+    scale = scale.float().contiguous()
     N = x2.shape[0]
     y = torch.empty((N, d), dtype=x.dtype, device=x.device)
     if N == 0 or d == 0:

@@ -1,4 +1,5 @@
-"""Grouped-query attention: full/sliding-window causal and cached decode.
+"""Grouped-query attention: full/sliding-window causal, bidirectional
+(the encoder's), cross (encoder-decoder) and cached decode.
 
 The causal full-sequence path goes to the hand-written flash kernel
 (``kernels/flash_attention``) when ``use_flash`` is set; otherwise it takes
@@ -24,7 +25,10 @@ CHUNKED_THRESHOLD = 2048
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg, generator, device, dtype=torch.float32) -> None:
+    """``cross=True`` is an encoder-decoder cross-attention: no q/k-norm."""
+
+    def __init__(self, cfg, generator, device, dtype=torch.float32,
+                 cross: bool = False) -> None:
         super().__init__()
         d, hd = cfg.d_model, cfg.hd
         self.wq = normal_init((d, cfg.n_heads * hd), generator, device,
@@ -35,7 +39,7 @@ class Attention(nn.Module):
                               dtype=dtype)
         self.wo = normal_init((cfg.n_heads * hd, d), generator, device,
                               dtype=dtype)
-        if cfg.qk_norm:
+        if cfg.qk_norm and not cross:
             self.q_norm = _param(torch.ones(hd, device=device, dtype=dtype))
             self.k_norm = _param(torch.ones(hd, device=device, dtype=dtype))
         else:
@@ -272,6 +276,23 @@ def attend_full(cfg, p: Attention, x, positions, *, window: int = 0,
                                                       device=x.device)
         o = _sdpa(cfg, q, k, v, mask)
     return o @ p.wo.to(x.dtype), (k, v)
+
+
+def attend_cross(cfg, p: Attention, x, kv_src):
+    """Cross-attention (encoder-decoder): no rope, no mask (the whole
+    source)."""
+    q, k, v = _project_qkv(cfg, p, x, kv_src)
+    o = _sdpa(cfg, q, k, v, None)
+    return o @ p.wo.to(x.dtype)
+
+
+def attend_cross_decode(cfg, p: Attention, x, cache):
+    """One token's cross-attention against the cached ``cross_k`` and
+    ``cross_v``: ``wq`` only, no rope."""
+    q = (x @ p.wq.to(x.dtype)).reshape(x.shape[0], 1, cfg.n_heads, cfg.hd)
+    o = _sdpa(cfg, q, cache["cross_k"].to(x.dtype),
+              cache["cross_v"].to(x.dtype), None)
+    return o @ p.wo.to(x.dtype)
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, device,

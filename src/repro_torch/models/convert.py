@@ -2,7 +2,8 @@
 
 ``repro.models.init_lm`` stacks every block parameter with ``vmap``: a
 leading ``n_groups`` axis, one tuple entry of ``params["blocks"]`` per layer
-kind.  ``from_jax_params`` undoes that stacking and returns the port's
+kind; an encoder-decoder's ``params["encoder"]`` is one dict stacked over
+its ``n_encoder_layers`` (encoder layer N is index N of each leaf).  ``from_jax_params`` undoes that stacking and returns the port's
 ``LM`` holding exactly those values.  The JAX pytree arrives as numpy
 arrays (``jax.tree_util.tree_map(np.asarray, params)``), so this module
 needs no JAX.
@@ -10,7 +11,8 @@ needs no JAX.
 ``to_jax_layout`` and ``from_jax_layout`` do the same for a whole train
 state (the model and its AdamW state), flattened to the leaf names the
 reference's checkpoint manager writes (``params/blocks/0/attn/wq`` with its
-leading ``n_groups`` axis, ``opt/step``, ``opt/m/...``, the q8 moments'
+leading ``n_groups`` axis, ``params/encoder/attn/wq`` with its leading
+encoder-layer axis, ``opt/step``, ``opt/m/...``, the q8 moments'
 ``.../codes`` and ``.../scales``): so a checkpoint of either package
 restores in the other.
 """
@@ -53,17 +55,23 @@ def from_jax_params(np_params, cfg: ArchConfig, device="cuda") -> LM:
                            "device is available; pass device='cpu'")
     model = LM(cfg, device, generator=None)
     _fill(model.embed, np_params["embed"])
-    for name, value in np_params["final_norm"].items():
-        _fill(getattr(model.final_norm, name), value)
-    if model.lm_head is not None:
-        _fill(model.lm_head, np_params["lm_head"])
+    for norm in ("final_norm", "enc_norm"):
+        for name, value in np_params.get(norm, {}).items():
+            _fill(getattr(getattr(model, norm), name), value)
+    for name in ("lm_head", "frontend_proj"):
+        if getattr(model, name) is not None:
+            _fill(getattr(model, name), np_params[name])
     kinds = layer_kinds(cfg)
     for layer, blk in enumerate(model.blocks):
         g, i = divmod(layer, len(kinds))
         # Each group of a block's parameters (ln1, ln2 and attn + ffn or
-        # moe, or rwkv + cmix) is the port module of the same name.
+        # moe, hymba's mamba, the decoder's ln_cross and cross, or rwkv +
+        # cmix) is the port module of the same name.
         for group, params in np_params["blocks"][i].items():
             _fill_group(getattr(blk, group), params, g)
+    for layer, blk in enumerate(model.encoder):
+        for group, params in np_params["encoder"].items():
+            _fill_group(getattr(blk, group), params, layer)
     return model
 
 
@@ -71,10 +79,13 @@ def from_jax_params(np_params, cfg: ArchConfig, device="cuda") -> LM:
 # whole train states, in the reference's checkpoint layout
 # ----------------------------------------------------------------------
 def reference_path(cfg: ArchConfig, name: str) -> Tuple[str, Optional[int]]:
-    """A port leaf name (``blocks.5.attn.wq``, ``final_norm.scale``) as the
-    reference's tree path and the layer group it is stacked at (None for a
-    leaf the reference does not stack)."""
+    """A port leaf name (``blocks.5.attn.wq``, ``encoder.3.attn.wq``,
+    ``final_norm.scale``) as the reference's tree path and the index it is
+    stacked at: the layer group, the encoder layer, or None for a leaf the
+    reference does not stack."""
     parts = name.split(".")
+    if parts[0] == "encoder":
+        return "/".join(["encoder"] + parts[2:]), int(parts[1])
     if parts[0] != "blocks":
         return "/".join(parts), None
     g, i = divmod(int(parts[1]), len(layer_kinds(cfg)))

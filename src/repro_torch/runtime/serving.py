@@ -23,11 +23,14 @@ the scheduler's submission pipeline lock.
 
 On ``device="cuda"`` (the default) each batch runs on its lane's CUDA
 stream and prefill goes through the hand-written kernels: flash attention
-(``use_flash`` defaults to True there, False on the CPU) for the dense
-family, the WKV6 recurrence for the ssm family (RWKV6), and RMSNorm
-wherever the model normalizes with it.  ``init_cache`` gives each batch its
-per-layer caches: KV caches for attention layers, recurrent states for
-rwkv layers.
+(``use_flash`` defaults to True there, False on the CPU) for the families
+with attention (dense, MoE, hymba), the WKV6 recurrence for the ssm family
+(RWKV6), and RMSNorm wherever the model normalizes with it.
+``init_cache`` gives each batch its per-layer caches: KV caches for
+attention layers, recurrent states for rwkv layers and hymba's Mamba heads
+(a nested ``"mamba"`` dict the model replaces at each step).  Requests are
+tokens only, as the reference's engine takes them: an encoder-decoder's
+frames and a vision model's patches come through ``launch.serve``.
 
 Per-slot ragged positions (token-level continuous batching) would need a
 vector-``pos`` decode mask; noted as future work in DESIGN.md.

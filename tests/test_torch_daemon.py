@@ -532,6 +532,12 @@ def test_server_drain_blocks_submissions_then_resumes(tmp_path):
     try:
         with DaemonClient(srv.socket_path) as c:
             jid = c.submit("sleep", {"total_s": 0.05})["job_id"]
+            # drain finishes *running* jobs and claims no queued one: wait
+            # until a dispatcher has claimed the job (it may finish too)
+            deadline = time.monotonic() + 10
+            while c.status(jid)["state"] == "queued":
+                assert time.monotonic() < deadline
+                time.sleep(0.01)
             d = c.drain(timeout=10)
             assert d["drained"] and d["running"] == 0
             assert c.status(jid)["state"] == "finished"

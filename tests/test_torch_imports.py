@@ -14,14 +14,15 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
-# Modules of the daemon, MoE and training slices, named so that a missing
-# one fails.
+# Modules of the daemon, MoE, training and model-family slices, named so
+# that a missing one fails.
 NEW_MODULES = tuple(f"repro_torch.daemon.{m}" for m in (
     "cli", "client", "jobs", "lifecycle", "monitor", "policy", "server",
     "store", "wire", "__main__")) + ("repro_torch.models.moe",) + tuple(
     f"repro_torch.{m}" for m in (
         "optim", "optim.adamw", "data", "data.pipeline", "checkpoint",
-        "checkpoint.manager", "runtime.trainer", "launch", "launch.train"))
+        "checkpoint.manager", "runtime.trainer", "launch", "launch.train",
+        "models.mamba", "launch.serve"))
 
 
 def _port_sources():
@@ -93,9 +94,11 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         DaemonServer(os.path.join(str(tmp_path), "d.sock"))
     with pytest.raises(RuntimeError, match="cuda"):
         TaskGraphTrainer(cfg)
-    from repro_torch.launch import train
+    from repro_torch.launch import serve, train
     with pytest.raises(SystemExit, match="cuda"):
         train.main(["--reduced", "--steps", "1"])
+    with pytest.raises(SystemExit, match="cuda"):
+        serve.main(["--reduced"])
     # The simulator needs no device; the CPU is there when asked for.
     make_scheduler(simulate=True).close()
     make_scheduler(device="cpu").close()

@@ -248,6 +248,6 @@ def test_rmsnorm_kernel_is_deterministic_and_refuses_bad_input(card):
     a, b = rms_ops.rmsnorm(x, scale), rms_ops.rmsnorm(x, scale)
     assert torch.equal(a, b)
     with pytest.raises(TypeError, match="scale"):
-        rms_ops.rmsnorm(x, scale.bfloat16())
+        rms_ops.rmsnorm(x, scale.double())
     with pytest.raises(TypeError):
         rms_ops.rmsnorm(x.half(), scale)

@@ -18,11 +18,10 @@ from repro.models import attention as JA
 from repro.models import (forward_decode as jdecode,
                           forward_prefill as jprefill, init_cache as jcache,
                           init_lm as jinit)
-from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs import get_config
 from repro_torch.models import (attention as TA, forward_decode,
                                 forward_prefill, from_jax_params, init_cache,
                                 init_lm, layer_kinds)
-from repro_torch.models.transformer import PORTED_FAMILIES
 
 TOL = dict(rtol=2e-2, atol=2e-2)
 DENSE = ["qwen3_32b", "gemma3_12b"]
@@ -145,12 +144,3 @@ def test_init_lm_draws_the_reference_distributions():
                for blk in a.blocks)
     assert all(p.dtype == torch.float32 and not p.requires_grad
                for p in a.parameters())
-
-
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS
-                                  if get_config(a).family
-                                  not in PORTED_FAMILIES])
-def test_unported_families_raise(arch):
-    cfg = get_config(arch, reduced=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_lm(cfg, torch.Generator(), device="cpu")

@@ -23,6 +23,7 @@ Tolerances, by what each compares:
 """
 import dataclasses
 import functools
+import os
 from unittest import mock
 
 import jax
@@ -31,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.checkpoint import CheckpointManager as JCheckpointManager
 from repro.configs import get_config as jget_config
 from repro.data import SyntheticTokenStream as JStream
 from repro.data import batch_specs as jbatch_specs
@@ -42,6 +44,7 @@ from repro.optim import AdamW as JAdamW
 from repro.runtime.steps import TrainState as JTrainState
 from repro.runtime.steps import make_loss_fn as jmake_loss_fn
 from repro.runtime.steps import make_train_step as jmake_train_step
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.data import SyntheticTokenStream, batch_specs
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -51,12 +54,13 @@ from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.models import attention as TA
 from repro_torch.models import cross_entropy_loss, forward_train, \
     from_jax_params
-from repro_torch.models.convert import reference_path
+from repro_torch.models.convert import reference_path, to_jax_layout
 from repro_torch.optim import AdamW
 from repro_torch.runtime.steps import TrainState, make_loss_fn, \
     make_train_step
 
-ARCHS = ["qwen3_32b", "gemma3_12b", "qwen2_moe_a2_7b", "rwkv6_1_6b"]
+ARCHS = ["qwen3_32b", "gemma3_12b", "qwen2_moe_a2_7b", "rwkv6_1_6b",
+         "hymba_1_5b", "seamless_m4t_medium", "internvl2_76b"]
 LOGIT_TOL = 2e-2
 
 
@@ -75,9 +79,22 @@ def _pair(arch):
 
 
 def _batch(cfg, B=2, S=32, seed=1):
-    toks = np.random.RandomState(seed).randint(
-        0, cfg.vocab, (B, S + 1)).astype(np.int32)
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    """tokens and labels, plus the encoder's frames (S // 4) or the vision
+    stub's patches where the config takes them."""
+    rng = np.random.RandomState(seed)
+    toks = rng.randint(0, cfg.vocab, (B, S + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.n_encoder_layers:
+        batch["frames"] = rng.randn(B, S // 4, cfg.d_model).astype(
+            np.float32)
+    if cfg.frontend == "vision":
+        batch["patches"] = rng.randn(B, cfg.n_frontend_tokens,
+                                     cfg.d_model).astype(np.float32) * 0.02
+    return batch
+
+
+def _inputs(batch):
+    return {k: v for k, v in batch.items() if k != "labels"}
 
 
 def _flat_ref(tree):
@@ -138,10 +155,10 @@ def test_forward_train_matches_reference(arch):
     jcfg, params, cfg, model = _pair(arch)
     batch = _batch(cfg)
     jl, ja = jax.jit(functools.partial(jforward_train, jcfg))(
-        params, {"tokens": jnp.asarray(batch["tokens"])})
+        params, {k: jnp.asarray(v) for k, v in _inputs(batch).items()})
     with torch.no_grad():
-        tl, ta = forward_train(cfg, model,
-                               {"tokens": torch.from_numpy(batch["tokens"])})
+        tl, ta = forward_train(cfg, model, {k: torch.from_numpy(v) for k, v
+                                            in _inputs(batch).items()})
     assert tl.dtype == torch.float32 and tl.shape == (2, 32, cfg.vocab)
     want = np.asarray(jl)
     scale = float(np.abs(want).max())
@@ -190,7 +207,9 @@ def test_loss_gradients_match_reference(arch):
     assert np.sqrt(num) <= 1.5e-2 * np.sqrt(den)
 
 
-@pytest.mark.parametrize("arch", ["qwen3_32b", "qwen2_moe_a2_7b"])
+@pytest.mark.parametrize("arch", ["qwen3_32b", "qwen2_moe_a2_7b",
+                                  "hymba_1_5b", "seamless_m4t_medium",
+                                  "internvl2_76b"])
 def test_remat_changes_no_value(arch):
     """Recomputing each block in the backward pass gives the same logits
     and the same gradients, bit for bit."""
@@ -306,6 +325,48 @@ def test_train_step_matches_reference_jitted_step():
         assert p.grad is None
         np.testing.assert_allclose(p.detach().numpy(), _leaf(cfg, flat, n),
                                    rtol=0, atol=2 * kw["lr"] * steps)
+
+
+def test_seamless_checkpoint_crosses_to_the_reference_and_back(tmp_path):
+    """An encoder-decoder train state after one port step (the encoder's
+    ``encoder.N.*`` leaves stacked as ``params/encoder/*``[N], their
+    moments too) saved by the port, restored by the reference's manager
+    into its own state leaf for leaf, saved again by the reference and
+    restored by the port: every leaf equal, bit for bit."""
+    arch = "seamless_m4t_medium"
+    jcfg, params, cfg, model = _pair(arch)
+    opt = AdamW(lr=1e-3, warmup=2, total_steps=10)
+    state = TrainState(model, opt.init(model))
+    stream = SyntheticTokenStream(cfg, 16, 4, accum=1, seed=2)
+    state, _ = make_train_step(cfg, opt)(
+        state, {k: torch.from_numpy(v) for k, v in stream.batch(0).items()})
+    want = to_jax_layout(state)
+    assert any(n.startswith("params/encoder/") for n in want)
+    assert want["params/encoder/attn/wq"].shape[0] == cfg.n_encoder_layers
+    mgr = CheckpointManager(os.path.join(tmp_path, "port"), async_save=False)
+    mgr.save(1, state)
+
+    jopt = JAdamW(lr=1e-3, warmup=2, total_steps=10)
+    jlike = JTrainState(params, jopt.init(params))
+    step, jstate, _ = JCheckpointManager(
+        os.path.join(tmp_path, "port")).restore_latest(like=jlike)
+    assert step == 1
+    flat = _flat_ref(jstate)
+    assert sorted(flat) == sorted(want)
+    for n, a in want.items():
+        np.testing.assert_array_equal(flat[n], a, err_msg=n)
+
+    JCheckpointManager(os.path.join(tmp_path, "ref"),
+                       async_save=False).save(2, jstate)
+    fresh = _pair(arch)[3]
+    fresh_state = TrainState(fresh, opt.init(fresh))
+    step, back, _ = CheckpointManager(
+        os.path.join(tmp_path, "ref")).restore_latest(like=fresh_state)
+    assert step == 2
+    got = to_jax_layout(back)
+    assert sorted(got) == sorted(want)
+    for n, a in want.items():
+        np.testing.assert_array_equal(got[n], a, err_msg=n)
 
 
 # ----------------------------------------------------------------------
