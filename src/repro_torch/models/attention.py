@@ -280,10 +280,10 @@ def attend_full(cfg, p: Attention, x, positions, *, window: int = 0,
 
 def attend_cross(cfg, p: Attention, x, kv_src):
     """Cross-attention (encoder-decoder): no rope, no mask (the whole
-    source)."""
+    source).  Returns (out, (k, v)) so prefill can fill the cross cache."""
     q, k, v = _project_qkv(cfg, p, x, kv_src)
     o = _sdpa(cfg, q, k, v, None)
-    return o @ p.wo.to(x.dtype)
+    return o @ p.wo.to(x.dtype), (k, v)
 
 
 def attend_cross_decode(cfg, p: Attention, x, cache):

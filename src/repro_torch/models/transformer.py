@@ -238,7 +238,9 @@ def apply_block_seq(cfg, blk: Block, x, positions, *, cache=None,
     x = x + y
     cross = hasattr(blk, "cross") and enc_out is not None
     if cross:
-        x = x + A.attend_cross(cfg, blk.cross, blk.ln_cross(x), enc_out)
+        yc, (ck, cv) = A.attend_cross(cfg, blk.cross, blk.ln_cross(x),
+                                      enc_out)
+        x = x + yc
     x = _ffn_part(cfg, blk, x, aux)
     if cache is not None:
         S = k.shape[1]
@@ -253,7 +255,6 @@ def apply_block_seq(cfg, blk: Block, x, positions, *, cache=None,
         if blk.kind == "hymba":
             cache["mamba"] = mstate
         if cross:
-            _, ck, cv = A._project_qkv(cfg, blk.cross, x, enc_out)
             cache["cross_k"].copy_(ck)
             cache["cross_v"].copy_(cv)
     return x

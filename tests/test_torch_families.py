@@ -237,3 +237,84 @@ def test_reference_ndim_stacks_blocks_and_encoder(arch):
     for name, _ in model.named_parameters():
         assert model.reference_ndim(name) == flat[
             reference_path(cfg, name)[0]].ndim, name
+
+
+def _logits_by_depth(jcfg, params, cfg, model, toks, patches, depths):
+    """Both packages' last-token logits read out (final norm and head)
+    after each of ``depths`` blocks, with the residual stream in float32
+    and in bf16: {(package, dtype, depth): (B, V) float32}."""
+    from repro.models import transformer as JT
+    from repro.models.layers import apply_norm
+    from repro_torch.models import transformer as T
+    S = toks.shape[1]
+    out = {}
+    for name, jdt, tdt in (("f32", jnp.float32, torch.float32),
+                           ("bf16", jnp.bfloat16, torch.bfloat16)):
+        x = JT._embed(jcfg, params, jnp.asarray(toks),
+                      jnp.asarray(patches)).astype(jdt)
+        aux = (jnp.float32(0), jnp.float32(0))
+        for i in range(jcfg.n_layers):
+            p = jax.tree_util.tree_map(lambda a: a[i], params["blocks"][0])
+            x, aux, _ = JT.apply_block_seq(jcfg, "attn_global", p, x,
+                                           jnp.arange(S)[None], aux)
+            if i + 1 in depths:
+                h = apply_norm(jcfg, params["final_norm"], x[:, -1:])
+                out["ref", name, i + 1] = np.asarray(
+                    JT._logits(jcfg, params, h)[:, 0])
+        with torch.no_grad():
+            x = T._embed(cfg, model, torch.from_numpy(toks),
+                         torch.from_numpy(patches)).to(tdt)
+            for i, blk in enumerate(model.blocks):
+                x = T.apply_block_seq(cfg, blk, x, torch.arange(S)[None])
+                if i + 1 in depths:
+                    out["port", name, i + 1] = T._logits(
+                        cfg, model, model.final_norm(x[:, -1:]))[:, 0].numpy()
+    return out
+
+
+def test_bf16_drift_at_full_width_gain_matches_reference():
+    """internvl's bf16 logits drift far from float32 ones with depth at
+    full width: the random N(0, 0.02²) weights give each projection a gain
+    of 0.02·sqrt(fan-in), 1.8 at d 8192.  At d 1024 with every matrix but
+    the embedding scaled by sqrt(8192 / 1024), so that each has its
+    full-width gain (hd 128 as there), bf16 weights, 1024 tokens of which
+    256 are patches, the reference drifts as the port does: the port's
+    bf16-vs-float32 drift lies within a factor of 1.5 of the reference's
+    at each depth, and after 8 layers both exceed 10% of the logit scale
+    (run with ``-s`` for the numbers), while the float32 paths agree within
+    1e-3 of it."""
+    import dataclasses
+    d, P, S, depths = 1024, 256, 1024, (1, 2, 4, 8)
+    kw = dict(n_layers=8, d_model=d, n_heads=8, n_kv_heads=1, d_ff=3584,
+              vocab=2048, head_dim=128, n_frontend_tokens=P)
+    jcfg = dataclasses.replace(jget_config("internvl2_76b", reduced=True),
+                               **kw)
+    cfg = dataclasses.replace(get_config("internvl2_76b", reduced=True), **kw)
+    gain = (8192 / d) ** 0.5
+    params = jinit(jax.random.PRNGKey(0), jcfg, dtype=jnp.bfloat16)
+
+    def full_width_gain(path, a):
+        name = jax.tree_util.keystr(path)
+        matrix = a.ndim == (3 if "blocks" in name else 2)
+        if not matrix or "embed" in name:
+            return a
+        return (a.astype(jnp.float32) * gain).astype(jnp.bfloat16)
+    params = jax.tree_util.tree_map_with_path(full_width_gain, params)
+    model = from_jax_params(jax.tree_util.tree_map(
+        lambda a: np.asarray(a, np.float32), params), cfg, "cpu")
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, cfg.vocab, (B, S)).astype(np.int32)
+    patches = rng.randn(B, P, d).astype(np.float32) * 0.02
+    out = _logits_by_depth(jcfg, params, cfg, model, toks, patches, depths)
+    for n in depths:
+        scale = np.abs(out["ref", "f32", n]).max()
+        drift = {pkg: np.abs(out[pkg, "bf16", n]
+                             - out[pkg, "f32", n]).max() / scale
+                 for pkg in ("ref", "port")}
+        f32_gap = np.abs(out["port", "f32", n] - out["ref", "f32", n]).max()
+        print(f"{n} layers: bf16 drift from float32, reference "
+              f"{drift['ref']:.3e}, port {drift['port']:.3e} of the logit "
+              f"scale; float32 port vs reference {f32_gap / scale:.3e}")
+        assert f32_gap <= 1e-3 * scale
+        assert drift["ref"] / 1.5 <= drift["port"] <= 1.5 * drift["ref"]
+    assert min(drift.values()) > 0.1
