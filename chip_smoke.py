@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Nine phases, each of which raises on failure (nothing is caught):
+Ten phases, each of which raises on failure (nothing is caught):
 
 1. build: compiles every CUDA kernel of the port from ``src/repro_torch``
    with ``nvcc`` (one process per source, all at once) into ``build/``,
@@ -92,7 +92,23 @@ Nine phases, each of which raises on failure (nothing is caught):
    width cut to 8 of its 80 layers (bf16, 18 GB) through
    ``launch.serve.generate`` with its 256 patch embeddings: the patch
    positions, RMSNorm on bf16 scales against its plain version, the
-   launch counts.
+   launch counts;
+10. the mesh, in a process of its own over an NCCL world of one rank, a
+   (1, 1) ``("data", "model")`` mesh (the round has one card: values on
+   meshes of several ranks are held on the CPU by the gloo tests), which
+   asserts that under 1 GiB is allocated when it starts: (a) phase 8b's
+   model and batch, 3 steps of ``make_train_step`` on plain tensors, then
+   3 with the parameters as ``DTensor``s under ``sharding_rules``: losses
+   and every parameter equal to rtol 1e-5, RMSNorm 34 launches a step
+   through ``local_map``, step times and peak memory; (b) a
+   ``SpaceSharedRunner`` on ``SubmeshPool()`` runs two prefills of phase
+   3's model bit for bit equal to direct calls, under one declared
+   identity; (c) ``launch.serve.main`` on ``rwkv6_1_6b`` as published
+   with ``--model-parallel 2``: its lines, and WKV6 through ``local_map``;
+   (d) ``compressed_psum`` on a full-width gradient leaf equal to
+   ``compress_with_feedback``'s values, timed beside a plain
+   ``all_reduce``.  In (a), (b) and (c) a plain version of a kernel
+   called on the card fails the phase.
 
 Each serving phase, phase 8b's first run and 9c's launcher run set every kernel's launch
 count to 0 just before it runs and reads the counts just after.
@@ -111,6 +127,7 @@ Imports neither ``jax`` nor the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -2537,6 +2554,356 @@ def phase_families_process(profile: bool) -> dict:
     return json.loads(lines[-1])
 
 
+# The mesh phase, in a process of its own: an NCCL world of one rank.
+MESH_ONLY = "--phase-10-process"
+MESH_STEPS = 3
+PHASE8B_STEP_S = 0.196            # phase 8b's trainer step, PERF.md §6
+
+
+@contextlib.contextmanager
+def kernels_only_on_card():
+    """Makes every kernel wrapper's plain version raise for the duration
+    (on the card the plain version is never the path), and counts the
+    wrappers' ``DTensor`` entries (their ``local_map`` calls)."""
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.rmsnorm import ops as rms
+    from repro_torch.kernels.rwkv6 import ops as wkv
+    sharded = {"rmsnorm": 0, "flash_attention": 0, "wkv6": 0}
+    saved = []
+
+    def patch(mod, name, new):
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, new)
+
+    def refuse(name):
+        def plain(*a, **k):
+            raise AssertionError(f"the plain version of {name} ran on the "
+                                 f"card")
+        return plain
+
+    def counting(name, fn):
+        def entry(*a, **k):
+            sharded[name] += 1
+            return fn(*a, **k)
+        return entry
+    patch(rms, "rmsnorm_ref", refuse("rmsnorm"))
+    patch(flash, "attention_ref", refuse("flash_attention"))
+    patch(wkv, "wkv6_plain", refuse("wkv6"))
+    patch(rms, "_rmsnorm_sharded", counting("rmsnorm",
+                                            rms._rmsnorm_sharded))
+    patch(flash, "_flash_sharded", counting("flash_attention",
+                                            flash._flash_sharded))
+    patch(wkv, "_wkv6_sharded", counting("wkv6", wkv._wkv6_sharded))
+    try:
+        yield sharded
+    finally:
+        for mod, name, fn in reversed(saved):
+            setattr(mod, name, fn)
+
+
+def sync_time(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def mesh_train_step(card: str, mesh) -> dict:
+    """10a: phase 8b's model and batch, 3 steps on plain tensors, then 3 on
+    ``DTensor`` parameters over the (1, 1) mesh; equal to rtol 1e-5."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenStream
+    from repro_torch.models import init_lm
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime.steps import TrainState, make_train_step
+    from repro_torch.sharding.context import sharding_rules
+    from repro_torch.sharding.rules import (NamedSharding, batch_spec,
+                                            logical_to_physical,
+                                            param_sharding, place)
+
+    cfg = dataclasses.replace(get_config("qwen3_32b"), n_layers=2)
+    stream = SyntheticTokenStream(cfg, TRAIN_SEQ, TRAIN_BATCH,
+                                  accum=TRAIN_ACCUM)
+    batches = [{k: torch.from_numpy(v).cuda()
+                for k, v in stream.batch(i).items()}
+               for i in range(MESH_STEPS)]
+
+    def run(sharded: bool):
+        opt = AdamW(lr=3e-4, warmup=20, total_steps=100)
+        torch.cuda.reset_peak_memory_stats()
+        model = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+        feed = batches
+        if sharded:
+            logical_to_physical(mesh, model, param_sharding(model, mesh))
+            bs = batch_spec(mesh)
+            feed = [{k: place(v, NamedSharding(mesh, (None,) + bs[k]))
+                     for k, v in b.items()} for b in batches]
+        state = TrainState(model, opt.init(model))
+        step = make_train_step(cfg, opt)
+        losses, times = [], []
+        for b in feed:
+            if sharded:
+                with sharding_rules(mesh):
+                    (_, met), dt = sync_time(lambda: step(state, b))
+            else:
+                (_, met), dt = sync_time(lambda: step(state, b))
+            losses.append(float(met["loss"]))
+            times.append(dt)
+        t_copy = time.perf_counter()
+        host = {n: (p.full_tensor() if sharded else p).detach().cpu()
+                for n, p in model.named_parameters()}
+        print(f"[mesh] 10a {'sharded' if sharded else 'plain'} run: "
+              f"parameters to the host in "
+              f"{time.perf_counter() - t_copy:.2f} s")
+        placed = sum(hasattr(p, "device_mesh") for p in model.parameters())
+        peak = torch.cuda.max_memory_allocated()
+        del state, model, step, opt
+        free_card()
+        return losses, times, host, peak, placed
+
+    losses0, times0, host0, peak0, _ = run(False)
+    print(f"[mesh] 10a plain step: losses {json.dumps(losses0)}, step "
+          f"times (s) {json.dumps(times0)}, peak {peak0 / 2**30:.3f} GiB "
+          f"({card})")
+    reset_launches()
+    with kernels_only_on_card() as sharded_calls:
+        losses1, times1, host1, peak1, placed = run(True)
+    launches = read_launches()
+    n_leaves = len(host0)
+    if placed != n_leaves:
+        raise AssertionError(f"{placed} of {n_leaves} parameters were "
+                             f"DTensors")
+    loss_diff = float(np.max(np.abs(np.subtract(losses1, losses0))))
+    np.testing.assert_allclose(losses1, losses0, rtol=1e-5)
+    worst, worst_name, n_equal = 0.0, "", 0
+    t_cmp = time.perf_counter()
+    for n, want in host0.items():
+        got = host1[n]
+        if torch.equal(got, want):
+            n_equal += 1
+            continue
+        diff = (got - want).abs()
+        d = float(diff.max())
+        if d >= worst:
+            worst, worst_name = d, n
+        if not bool((diff <= 1e-5 * want.abs()).all()):
+            raise AssertionError(f"{n}: sharded and plain parameters differ "
+                                 f"beyond rtol 1e-5 (largest {d:.3e})")
+    t_cmp = time.perf_counter() - t_cmp
+    per_step = launches["rmsnorm"] / MESH_STEPS
+    print(f"[mesh] 10a sharded step on the (1, 1) mesh: losses "
+          f"{json.dumps(losses1)}, step times (s) {json.dumps(times1)} "
+          f"(phase 8b's trainer step: {PHASE8B_STEP_S} s), peak "
+          f"{peak1 / 2**30:.3f} GiB; largest loss difference {loss_diff:.3e},"
+          f" largest parameter difference {worst:.3e} {worst_name}; "
+          f"{n_equal} of {n_leaves} leaves bitwise equal (compared in "
+          f"{t_cmp:.2f} s); launches "
+          f"{json.dumps(launches)}, DTensor entries "
+          f"{json.dumps(sharded_calls)} ({card})")
+    expect_launches(launches, {"rmsnorm": RMS_PER_STEP * MESH_STEPS,
+                               "flash_attention": 0, "wkv6": 0})
+    if sharded_calls["rmsnorm"] != launches["rmsnorm"] or per_step != \
+            RMS_PER_STEP:
+        raise AssertionError("RMSNorm did not launch through local_map "
+                             "at every call")
+    return launches
+
+
+def mesh_spacesharing(card: str) -> dict:
+    """10b: two independent prefills of phase 3's model space-shared by a
+    SpaceSharedRunner on SubmeshPool() (one card: one lane), bit for bit
+    equal to direct calls, under one declared identity."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import ElementKind
+    from repro_torch.models import init_cache, init_lm
+    from repro_torch.runtime import make_prefill_step
+    from repro_torch.runtime.spacesharing import (SpaceSharedRunner,
+                                                  SubmeshPool)
+
+    cfg = dataclasses.replace(get_config("qwen3_32b"), n_layers=4)
+    plen = 1024
+    model = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda")
+    prefill = make_prefill_step(cfg, use_flash=True)
+
+    def task(toks):
+        logits, _ = prefill(model, {"tokens": toks},
+                            init_cache(cfg, toks.shape[0], plen, "cuda"))
+        return logits
+    rng = np.random.RandomState(10)
+    prompts = [rng.randint(0, cfg.vocab, (1, plen)).astype(np.int32)
+               for _ in range(2)]
+    direct = [task(torch.from_numpy(p).cuda()) for p in prompts]
+    torch.cuda.synchronize()
+    pool = SubmeshPool()
+    runner = SpaceSharedRunner(pool)
+    reset_launches()
+    try:
+        with kernels_only_on_card():
+            t0 = time.perf_counter()
+            results = [runner.submit(task, [runner.sched.array(
+                p, name=f"prompt{i}")], name="prefill")
+                for i, p in enumerate(prompts)]
+            got = runner.gather(results)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = read_launches()
+        keys = {e.fn_key for e in runner.sched._elements
+                if e.kind is ElementKind.KERNEL}
+        stats = runner.sched.stats()
+    finally:
+        runner.sched.shutdown()
+    equal = [bool(torch.equal(g, d)) for g, d in zip(got, direct)]
+    print(f"[mesh] 10b SubmeshPool() lanes {[str(x) for x in pool.lanes]}, "
+          f"two prefills of {cfg.name} (full width, {cfg.n_layers} layers, "
+          f"{plen} tokens): {wall:.3f} s, bitwise equal to direct calls "
+          f"{equal}, fn_keys {len(keys)}, launches {json.dumps(launches)}, "
+          f"lanes used {stats.get('lanes_used', stats.get('streams'))} "
+          f"({card})")
+    if not all(equal):
+        raise AssertionError("space-shared prefills differ from direct calls")
+    if len(keys) != 1 or None in keys:
+        raise AssertionError(f"SpaceSharedRunner minted {keys}")
+    expect_launches(launches, {"flash_attention": 2 * cfg.n_layers,
+                               "rmsnorm": 2 * (4 * cfg.n_layers + 1),
+                               "wkv6": 0})
+    del model, direct, got
+    free_card()
+    return launches
+
+
+def mesh_serve_cli(card: str) -> dict:
+    """10c: ``launch.serve.main`` on rwkv6_1_6b as published with
+    ``--model-parallel 2`` (a (1, 1) mesh on one rank): the reference's
+    two lines, and every WKV6 through ``local_map``."""
+    import io
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    cfg = get_config("rwkv6_1_6b")
+    buf = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with kernels_only_on_card() as sharded_calls, \
+            contextlib.redirect_stdout(buf):
+        serve.main(["--arch", "rwkv6_1_6b", "--model-parallel", "2"])
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    lines = buf.getvalue().splitlines()
+    sys.stdout.write(buf.getvalue())
+    print(f"[mesh] 10c serve --arch rwkv6_1_6b --model-parallel 2: "
+          f"{wall:.2f} s with init; launches {json.dumps(launches)}, "
+          f"DTensor entries {json.dumps(sharded_calls)} ({card})")
+    if not lines or not lines[0].startswith(
+            "device cuda | generated 32 tokens in ") or \
+            not lines[1].startswith("sample: [") or \
+            lines[-1] != "mesh {'data': 1, 'model': 1}":
+        raise AssertionError(f"the serve launcher's lines: {lines}")
+    # batch 2, prompt 32, 16 new tokens: one prefill and 15 decode steps
+    # of WKV6 in each of the 24 layers
+    expect_launches(launches, {"wkv6": cfg.n_layers * 16,
+                               "wkv6_t1": cfg.n_layers * 15,
+                               "flash_attention": 0,
+                               "rmsnorm": 0})
+    if sharded_calls["wkv6"] != launches["wkv6"]:
+        raise AssertionError("WKV6 did not launch through local_map at "
+                             "every call")
+    free_card()
+    return launches
+
+
+def mesh_compressed_psum(card: str, mesh) -> None:
+    """10d: compressed_psum over the NCCL world of one rank on a gradient
+    leaf of phase 8b's width (the embedding's, vocab x d), equal to
+    compress_with_feedback's values; timed beside a plain all_reduce."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.optim.compress import (compress_with_feedback,
+                                            compressed_psum)
+    cfg = get_config("qwen3_32b")
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    g = torch.randn((cfg.vocab, cfg.d_model), generator=gen,
+                    device="cuda") * 1e-3
+    e = torch.randn_like(g) * 1e-5
+    want, want_err = compress_with_feedback(g, e)
+    (red, errs), dt = sync_time(
+        lambda: compressed_psum({"g": g}, {"g": e}, mesh["data"]))
+    if not (torch.equal(red["g"], want.float())
+            and torch.equal(errs["g"], want_err)):
+        raise AssertionError("compressed_psum differs from "
+                             "compress_with_feedback on one rank")
+    times, plain = [], []
+    for _ in range(3):
+        times.append(sync_time(lambda: compressed_psum(
+            {"g": g}, {"g": e}, mesh["data"]))[1])
+        buf = g.clone()
+        plain.append(sync_time(lambda: dist.all_reduce(
+            buf, group=mesh["data"].get_group()))[1])
+    print(f"[mesh] 10d compressed_psum on ({cfg.vocab}, {cfg.d_model}) "
+          f"f32 ({g.numel() * 4 / 1e9:.2f} GB): equal to "
+          f"compress_with_feedback; seconds {json.dumps(times)} (first "
+          f"{dt:.4f}) against a plain all_reduce {json.dumps(plain)} "
+          f"({card})")
+    del g, e, want, want_err, red, errs
+    free_card()
+
+
+def phase_mesh(card: str) -> dict:
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import (init_world, make_mesh_for,
+                                         mesh_axes)
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    print(f"[mesh] device memory allocated at the start: "
+          f"{held / 2**30:.3f} GiB")
+    if held >= 2**30:
+        raise AssertionError("an earlier phase left over 1 GiB on the card")
+    init_world("cuda")
+    try:
+        mesh = make_mesh_for(dist.get_world_size(), 2)
+        print(f"[mesh] world {dist.get_world_size()} ({dist.get_backend()}),"
+              f" mesh {mesh_axes(mesh)} on {mesh.device_type}")
+        t0 = time.perf_counter()
+        launches = mesh_train_step(card, mesh)
+        print(f"[mesh] 10a {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        space = mesh_spacesharing(card)
+        print(f"[mesh] 10b {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        serve = mesh_serve_cli(card)
+        print(f"[mesh] 10c {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        mesh_compressed_psum(card, mesh)
+        print(f"[mesh] 10d {time.perf_counter() - t0:.2f} s")
+    finally:
+        dist.destroy_process_group()
+    print(f"[mesh] phase {time.perf_counter() - t_phase:.2f} s")
+    return {name: launches[name] + space[name] + serve[name]
+            for name in ("flash_attention", "rmsnorm", "wkv6")}
+
+
+def phase_mesh_process() -> dict:
+    """Phase 10 in a process of its own, as phases 8 and 9: returns the
+    kernels' launch counts of its main paths, which the child prints on
+    its last line."""
+    cmd = [sys.executable, os.path.abspath(__file__), MESH_ONLY]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    sys.stdout.write(res.stdout)
+    sys.stderr.write(res.stderr)
+    lines = res.stdout.splitlines()
+    if res.returncode != 0 or not lines or not lines[-1].startswith("{"):
+        raise AssertionError(f"phase 10 failed (exit {res.returncode})")
+    return json.loads(lines[-1])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2560,6 +2927,9 @@ def main() -> int:
     if FAMILIES_ONLY in sys.argv:       # phase 9's own process
         print(json.dumps(phase_families(card, profile)))
         return 0
+    if MESH_ONLY in sys.argv:           # phase 10's own process
+        print(json.dumps(phase_mesh(card)))
+        return 0
     t0 = time.perf_counter()
     sass = phase_build()
     rows = [phase_flash(sass), phase_rmsnorm(), phase_wkv6()]
@@ -2578,6 +2948,7 @@ def main() -> int:
     free_card("daemon")
     train = phase_train_process(profile)
     families = phase_families_process(profile)
+    mesh = phase_mesh_process()
     for row in rows:
         row["launches"] = (rwkv if row["name"] == "wkv6" else launches)[
             row["name"]]
@@ -2585,6 +2956,7 @@ def main() -> int:
         row["launches_train"] = train[row["name"]]
         row["launches_hymba"] = families["hymba"][row["name"]]
         row["launches_internvl"] = families["internvl"][row["name"]]
+        row["launches_mesh"] = mesh[row["name"]]
         if row["name"] == "wkv6":
             row["launches_decode"] = rwkv["wkv6_t1"]
             row["launches_prefill"] = rwkv["wkv6"] - rwkv["wkv6_t1"]

@@ -9,6 +9,12 @@ with the same files, manifest and names.
 * per-leaf ``.npy`` files keyed by tree path, with a JSON manifest;
 * bounded: keeps the newest ``keep`` checkpoints.
 
+A ``DTensor`` leaf is gathered to its full value for ``save`` and placed
+with the placements of ``like``'s leaf by ``restore``, as the reference
+writes ``np.asarray`` of a sharded array and ``device_put``s it back with
+``like``'s sharding.  Every rank writes the whole checkpoint, so in a
+world of more than one rank each rank needs a directory of its own.
+
 A train state (an ``LM`` and its AdamW state, ``runtime.steps.TrainState``)
 is written in the reference's layout through ``models.convert``: a
 checkpoint of either package restores in the other.  Any other state is a
@@ -27,7 +33,8 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.convert import from_jax_layout, to_jax_layout
+from ..models.convert import (from_jax_layout, placed_like, to_jax_layout,
+                              whole)
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 
@@ -69,7 +76,7 @@ def _rebuild(tree: Any, load, path: Tuple[str, ...] = ()) -> Any:
 
 def _host_copy(leaf: Any) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy().copy()
+        return whole(leaf.detach()).cpu().numpy().copy()
     return np.array(leaf)
 
 
@@ -292,8 +299,8 @@ class CheckpointManager:
 
         def leaf(name, ref):
             arr = np.array(load(name))
-            if isinstance(ref, torch.Tensor):
-                return torch.from_numpy(arr).to(ref.device)
+            if isinstance(ref, torch.Tensor):  # a DTensor: ref's layout
+                return placed_like(torch.from_numpy(arr), ref)
             return arr
         return _rebuild(like, leaf)
 

@@ -8,6 +8,11 @@ which loads q, k and v with TMA and so needs 16-byte-aligned bases and
 (B, S, H) strides, float32 to the SIMT kernel.  A CPU tensor goes to the plain
 PyTorch version (``ref.attention_ref``).  There is no other path: a CUDA
 input the kernel does not take raises.
+
+``DTensor`` inputs run through ``local_map`` with the batch or the heads
+sharded and S and hd whole; heads stay sharded only where the KV heads
+split by the same factor (each rank's query heads then read its own KV
+heads), and any other placement is redistributed first.
 """
 from __future__ import annotations
 
@@ -16,7 +21,7 @@ import threading
 
 import torch
 
-from .. import on_card, refuse_grad
+from .. import is_dtensor, on_card, on_shards, refuse_grad
 from ..build import load
 from .ref import attention_ref
 
@@ -111,11 +116,19 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     return o
 
 
+def _flash_sharded(q, k, v, causal: bool, window: int, softcap: float):
+    return on_shards(flash_attention, q, k, v, causal=causal, window=window,
+                     softcap=softcap)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
     """q: (B, Sq, H, hd); k/v: (B, Sk, Hkv, hd) -> (B, Sq, H, hd).
 
-    The CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    The CUDA kernel for CUDA tensors, the plain version for CPU tensors; a
+    ``DTensor`` goes to either on each rank's shard."""
+    if is_dtensor(q):
+        return _flash_sharded(q, k, v, causal, window, softcap)
     if not on_card(q):
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap)

@@ -15,6 +15,11 @@ call goes through ``RMSNormFn``: the same kernel forward, and the closed-form
 backward in float32 as PyTorch ops (with rstd = rsqrt(mean(x²) + eps),
 x̂ = x·rstd and s the scale: dx = rstd·(g·s − x̂·mean(g·s·x̂)), dscale =
 Σ g·x̂).  The CPU path stays the plain version under plain autograd.
+
+A ``DTensor`` x runs through ``local_map`` with its rows sharded as they
+are and ``d`` whole (a shard of ``d`` is gathered first), the scale
+replicated; the scale's gradient is then a partial sum over the mesh
+dimensions that shard the rows.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import threading
 
 import torch
 
-from .. import on_card
+from .. import as_dtensor, is_dtensor, kernel_placements, on_card
 from ..build import load
 from .ref import rmsnorm_ref
 
@@ -113,11 +118,29 @@ class RMSNormFn(torch.autograd.Function):
         return dx.reshape(x.shape).to(x.dtype), dscale.to(scale.dtype), None
 
 
+def _rmsnorm_sharded(x, scale, eps: float):
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    rows = tuple(range(x.ndim - 1))
+    xp = kernel_placements(x, rows)
+    rep = (Replicate(),) * mesh.ndim
+    dscale = tuple(Partial() if p.is_shard() else Replicate() for p in xp)
+    fn = local_map(rmsnorm, out_placements=list(xp),
+                   in_placements=(xp, rep, None),
+                   in_grad_placements=(xp, dscale, None), device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(x, as_dtensor(scale, mesh), eps)
+
+
 def rmsnorm(x, scale, eps: float = 1e-6) -> torch.Tensor:
     """x: (..., d); scale: (d,) -> x's shape and dtype.
 
     The CUDA kernel for CUDA tensors (through ``RMSNormFn`` where autograd
-    needs the gradient), the plain version for CPU tensors."""
+    needs the gradient), the plain version for CPU tensors; a ``DTensor``
+    goes to either on each rank's shard."""
+    if is_dtensor(x):
+        return _rmsnorm_sharded(x, scale, eps)
     if not on_card(x):
         return rmsnorm_ref(x, scale, eps)
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):

@@ -9,6 +9,10 @@ T > 1 and every input is 16-byte aligned, and by plain loads otherwise
 (decode's T = 1, unaligned views); ``uses_ring`` tells which.  A CPU
 tensor goes to the plain PyTorch version (``ref.wkv6_ref``).  There is no
 other path: a CUDA input the kernel does not take raises.
+
+``DTensor`` inputs run through ``local_map`` with the batch or the heads
+sharded (u and the state follow the heads, the state the batch too) and
+time and hd whole; any other placement is redistributed first.
 """
 from __future__ import annotations
 
@@ -17,7 +21,8 @@ import threading
 
 import torch
 
-from .. import on_card, refuse_grad
+from .. import (as_dtensor, is_dtensor, kernel_placements, on_card,
+               refuse_grad)
 from ..build import load
 from .ref import wkv6_ref
 
@@ -140,11 +145,33 @@ def wkv6_cuda(r, k, v, w, u, s0):
     return y.reshape(B, T, H * hd), sT
 
 
+def _wkv6_sharded(r, k, v, w, u, s0):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = r.device_mesh
+    pl = kernel_placements(r, (0, 2))
+
+    def follow(batch, heads, other=Replicate()):
+        return tuple(batch if p.is_shard(0) else heads if p.is_shard(2)
+                     else other for p in pl)
+    up = follow(Replicate(), Shard(0))
+    sp = follow(Shard(0), Shard(1))
+    fn = local_map(wkv6, out_placements=(pl, sp),
+                   in_placements=(pl, pl, pl, pl, up, sp),
+                   in_grad_placements=(pl, pl, pl, pl,
+                                       follow(Partial(), Shard(0)), sp),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(*(as_dtensor(t, mesh) for t in (r, k, v, w, u, s0)))
+
+
 def wkv6(r, k, v, w, u, s0):
     """r/k/v/w: (B, T, H, hd); u: (H, hd); s0: (B, H, hd, hd) float32.
     Returns (y (B, T, H*hd) in r's dtype, s_final (B, H, hd, hd) float32).
 
-    The CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    The CUDA kernel for CUDA tensors, the plain version for CPU tensors; a
+    ``DTensor`` goes to either on each rank's shard."""
+    if is_dtensor(r):
+        return _wkv6_sharded(r, k, v, w, u, s0)
     if not on_card(r):
         return wkv6_plain(r, k, v, w, u, s0)
     refuse_grad("wkv6", "rwkv6 trains on the CPU only until the recurrence "

@@ -16,7 +16,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..kernels import is_dtensor, on_shards
 from ..kernels.flash_attention.ops import flash_attention
+from ..sharding.context import (align_heads, matmul, pin_attention_blocks,
+                                shard_heads, split_heads, use_weight)
 from .layers import _param, apply_rope, normal_init, rms_norm_heads, \
     rope_angles
 
@@ -47,20 +50,27 @@ class Attention(nn.Module):
 
 
 def _project_qkv(cfg, p: Attention, xq, xkv):
-    B, Sq, _ = xq.shape
-    Skv = xkv.shape[1]
     hd = cfg.hd
-    q = (xq @ p.wq.to(xq.dtype)).reshape(B, Sq, cfg.n_heads, hd)
-    k = (xkv @ p.wk.to(xq.dtype)).reshape(B, Skv, cfg.n_kv_heads, hd)
-    v = (xkv @ p.wv.to(xq.dtype)).reshape(B, Skv, cfg.n_kv_heads, hd)
+
+    def project(src, w, n_heads):
+        return split_heads(matmul(src, use_weight(w.to(xq.dtype),
+                                                  (None, "model"))),
+                           n_heads, hd)
+    q = project(xq, p.wq, cfg.n_heads)
+    k = project(xkv, p.wk, cfg.n_kv_heads)
+    v = project(xkv, p.wv, cfg.n_kv_heads)
     if p.q_norm is not None:
         q = rms_norm_heads(q, p.q_norm)
         k = rms_norm_heads(k, p.k_norm)
-    return q, k, v
+    return align_heads(shard_heads(q), shard_heads(k), shard_heads(v))
 
 
 def _sdpa(cfg, q, k, v, mask):
-    """q: (B,Sq,H,hd), k/v: (B,Skv,Hkv,hd), mask: (Sq,Skv) or (B,1,Sq,Skv)."""
+    """q: (B,Sq,H,hd), k/v: (B,Skv,Hkv,hd), mask: (Sq,Skv) or (B,1,Sq,Skv).
+    ``DTensor``s run on each rank's shard (batch or heads), with a plain
+    (Sq, Skv) mask."""
+    if is_dtensor(q):
+        return on_shards(lambda *qkv: _sdpa(cfg, *qkv, mask), q, k, v)
     B, Sq, H, hd = q.shape
     Hkv = k.shape[2]
     g = H // Hkv
@@ -228,6 +238,10 @@ class ChunkedAttention(torch.autograd.Function):
 
 def _sdpa_chunked(cfg, q, k, v, *, causal: bool = True, window: int = 0,
                   q_chunk: int = 512, kv_chunk: int = 1024):
+    if is_dtensor(q):     # pinned, then blocked on each rank's shard
+        return on_shards(lambda *qkv: _sdpa_chunked(
+            cfg, *qkv, causal=causal, window=window, q_chunk=q_chunk,
+            kv_chunk=kv_chunk), *pin_attention_blocks(q, k, v))
     Sq, Skv = q.shape[1], k.shape[1]
     q_chunk = min(q_chunk, Sq)
     kv_chunk = min(kv_chunk, Skv)
@@ -275,7 +289,7 @@ def attend_full(cfg, p: Attention, x, positions, *, window: int = 0,
         mask = None if bidirectional else causal_mask(S, S, window,
                                                       device=x.device)
         o = _sdpa(cfg, q, k, v, mask)
-    return o @ p.wo.to(x.dtype), (k, v)
+    return matmul(o, use_weight(p.wo.to(x.dtype), ("model", None))), (k, v)
 
 
 def attend_cross(cfg, p: Attention, x, kv_src):
@@ -283,16 +297,17 @@ def attend_cross(cfg, p: Attention, x, kv_src):
     source).  Returns (out, (k, v)) so prefill can fill the cross cache."""
     q, k, v = _project_qkv(cfg, p, x, kv_src)
     o = _sdpa(cfg, q, k, v, None)
-    return o @ p.wo.to(x.dtype), (k, v)
+    return matmul(o, use_weight(p.wo.to(x.dtype), ("model", None))), (k, v)
 
 
 def attend_cross_decode(cfg, p: Attention, x, cache):
     """One token's cross-attention against the cached ``cross_k`` and
     ``cross_v``: ``wq`` only, no rope."""
-    q = (x @ p.wq.to(x.dtype)).reshape(x.shape[0], 1, cfg.n_heads, cfg.hd)
-    o = _sdpa(cfg, q, cache["cross_k"].to(x.dtype),
+    q = split_heads(matmul(x, use_weight(p.wq.to(x.dtype), (None, "model"))),
+                    cfg.n_heads, cfg.hd)
+    o = _sdpa(cfg, shard_heads(q), cache["cross_k"].to(x.dtype),
               cache["cross_v"].to(x.dtype), None)
-    return o @ p.wo.to(x.dtype)
+    return matmul(o, use_weight(p.wo.to(x.dtype), ("model", None)))
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, device,
@@ -332,4 +347,5 @@ def attend_decode(cfg, p: Attention, x, cache, pos: int, *, window: int = 0):
         if window > 0:
             m &= (pos - kj) < window
     o = _sdpa(cfg, q, k.to(x.dtype), v.to(x.dtype), m)
-    return o @ p.wo.to(x.dtype), {"k": k, "v": v}
+    out = matmul(o, use_weight(p.wo.to(x.dtype), ("model", None)))
+    return out, {"k": k, "v": v}

@@ -103,6 +103,34 @@ def _tensor_leaves(tree: Mapping[str, object]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor`` gathered to its full value on every rank (the
+    reference's ``np.asarray`` of a sharded array); a tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def placed_like(value: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """The full ``value`` laid out as ``ref``: a ``DTensor`` with ``ref``'s
+    placements (each rank keeps its own shard; no communication), or a
+    tensor on ``ref``'s device."""
+    value = value.to(ref.device)
+    if not hasattr(ref, "device_mesh"):
+        return value
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(value, ref.device_mesh, ref.placements,
+                             src_data_rank=None)
+
+
+def _fill_placed(t: torch.Tensor, value: torch.Tensor) -> None:
+    """Writes the full host ``value`` into ``t`` (into each rank's own
+    shard of a ``DTensor``)."""
+    placed = placed_like(value, t)
+    if hasattr(placed, "to_local"):
+        t.to_local().copy_(placed.to_local())
+    else:
+        t.copy_(placed)
+
+
 def _host_array(shape, t: torch.Tensor) -> np.ndarray:
     return np.empty(shape, dtype=torch.empty(0, dtype=t.dtype).numpy().dtype)
 
@@ -115,7 +143,7 @@ def _stack_into(out: Dict[str, np.ndarray], prefix: str, cfg: ArchConfig,
     groups: Dict[str, list] = {}
     for n, t in leaves.items():
         path, g = reference_path(cfg, n)
-        groups.setdefault(path, []).append((g, t.detach()))
+        groups.setdefault(path, []).append((g, whole(t.detach())))
     for path, members in groups.items():
         t0 = members[0][1]
         if members[0][0] is None:
@@ -139,7 +167,7 @@ def _fill_from(flat: Mapping[str, np.ndarray], prefix: str, cfg: ArchConfig,
             raise ValueError(f"{prefix + path}: shape {tuple(arr.shape)} "
                              f"does not fit {n} {tuple(t.shape)}")
         with torch.no_grad():
-            t.copy_(torch.from_numpy(np.array(arr)))
+            _fill_placed(t, torch.from_numpy(np.array(arr)))
 
 
 def to_jax_layout(state) -> Dict[str, np.ndarray]:

@@ -17,7 +17,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels import is_dtensor, kernel_placements
 from ..kernels.rmsnorm.ops import rmsnorm
+from ..sharding.context import matmul, use_weight
 
 
 def normal_init(shape, generator: Optional[torch.Generator], device,
@@ -47,6 +49,9 @@ class Norm(nn.Module):
     def forward(self, x, eps: float = 1e-6):
         if self.kind == "rmsnorm":
             return rmsnorm(x, self.scale, eps)
+        if is_dtensor(x):     # the row statistics need whole rows
+            x = x.redistribute(placements=kernel_placements(
+                x, tuple(range(x.ndim - 1))))
         xf = x.float()
         mu = xf.mean(-1, keepdim=True)
         var = xf.var(-1, keepdim=True, unbiased=False)
@@ -111,15 +116,17 @@ class MLP(nn.Module):
                                       dtype=dtype)
 
     def forward(self, x):
-        h = x @ self.w_in.to(x.dtype)
+        h = matmul(x, use_weight(self.w_in.to(x.dtype), (None, "model")))
         if self.kind == "swiglu":
-            g = x @ self.w_gate.to(x.dtype)
+            g = matmul(x, use_weight(self.w_gate.to(x.dtype),
+                                     (None, "model")))
             h = F.silu(g) * h
         elif self.kind == "geglu":
-            g = x @ self.w_gate.to(x.dtype)
+            g = matmul(x, use_weight(self.w_gate.to(x.dtype),
+                                     (None, "model")))
             h = F.gelu(g, approximate="tanh") * h
         elif self.kind == "relu2":                 # nemotron squared-ReLU
             h = torch.square(F.relu(h))
         else:                                      # gelu (starcoder2)
             h = F.gelu(h, approximate="tanh")
-        return h @ self.w_out.to(x.dtype)
+        return matmul(h, use_weight(self.w_out.to(x.dtype), ("model", None)))

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..sharding.context import einsum, shard_activations, use_weight
 from .layers import MLP, normal_init
 
 
@@ -71,7 +72,8 @@ def route(cfg, router, x) -> Dict[str, torch.Tensor]:
     position``, or the trash slot ``E * cap`` where dropped)."""
     e = cfg.moe
     B, S, _ = x.shape
-    logits = torch.einsum("bsd,de->bse", x.float(), router)
+    logits = torch.einsum("bsd,de->bse", x.float(),
+                          use_weight(router, (None, None)))
     probs = torch.softmax(logits, dim=-1)
     gates, expert_ids = torch.topk(probs, e.top_k, dim=-1)     # (B, S, k)
     gates = gates / (gates.sum(-1, keepdim=True) + 1e-9)
@@ -84,13 +86,14 @@ def route(cfg, router, x) -> Dict[str, torch.Tensor]:
     # tokens routed to an expert are kept, as in the reference.
     order = torch.argsort(flat_ids, dim=1, stable=True)
     sorted_ids = flat_ids.gather(1, order)
-    counts = torch.zeros((B, e.n_experts), dtype=flat_ids.dtype,
-                         device=x.device)
-    counts.scatter_add_(1, flat_ids, torch.ones_like(flat_ids))
+    # per-row expert counts by comparison, as the reference counts them
+    # (a scatter into fresh zeros has no DTensor form in place)
+    iota_e = torch.arange(e.n_experts, dtype=flat_ids.dtype, device=x.device)
+    counts = (flat_ids[:, :, None] == iota_e).sum(1)            # (B, E)
     starts = torch.cumsum(counts, dim=1) - counts               # (B, E)
     ranks_sorted = (torch.arange(Tk, device=x.device)[None, :]
                     - starts.gather(1, sorted_ids))
-    pos = torch.empty_like(flat_ids).scatter_(1, order, ranks_sorted)
+    pos = torch.empty_like(flat_ids).scatter(1, order, ranks_sorted)
     keep = pos < cap
     slot = torch.where(keep, flat_ids * cap + pos,
                        torch.full_like(flat_ids, e.n_experts * cap))
@@ -98,20 +101,30 @@ def route(cfg, router, x) -> Dict[str, torch.Tensor]:
                 expert_ids=expert_ids, keep=keep, slot=slot, cap=cap)
 
 
+_EP_IN = (("model", None, None), (None, None, "model"))
+_EP_OUT = (("model", None, None), (None, "model", None))
+
+
 def _expert_ffn(cfg, p: MoE, x):
-    """x: (B, E, C, d) -> (B, E, C, d), batched over row and expert."""
-    h = torch.einsum("becd,edf->becf", x, p.w_in.to(x.dtype))
+    """x: (B, E, C, d) -> (B, E, C, d), batched over row and expert.
+    Expert weights are constrained to EP (expert axis over "model") when
+    the expert count divides, else to TP on the expert FFN dim."""
+    h = einsum("becd,edf->becf", x,
+                     use_weight(p.w_in.to(x.dtype), *_EP_IN))
     if cfg.mlp == "swiglu":
-        g = torch.einsum("becd,edf->becf", x, p.w_gate.to(x.dtype))
+        g = einsum("becd,edf->becf", x,
+                         use_weight(p.w_gate.to(x.dtype), *_EP_IN))
         h = F.silu(g) * h
     elif cfg.mlp == "geglu":
-        g = torch.einsum("becd,edf->becf", x, p.w_gate.to(x.dtype))
+        g = einsum("becd,edf->becf", x,
+                         use_weight(p.w_gate.to(x.dtype), *_EP_IN))
         h = F.gelu(g, approximate="tanh") * h
     elif cfg.mlp == "relu2":
         h = torch.square(F.relu(h))
     else:
         h = F.gelu(h, approximate="tanh")
-    return torch.einsum("becf,efd->becd", h, p.w_out.to(x.dtype))
+    return einsum("becf,efd->becd", h,
+                        use_weight(p.w_out.to(x.dtype), *_EP_OUT))
 
 
 def apply_moe(cfg, p: MoE, x) -> Tuple[torch.Tensor, dict]:
@@ -127,18 +140,21 @@ def apply_moe(cfg, p: MoE, x) -> Tuple[torch.Tensor, dict]:
     idx = slot[..., None].expand(B, Tk, d)
 
     # Scatter: row E * cap is the trash row of the dropped tokens.
-    xrep = x.repeat_interleave(e.top_k, dim=1)                 # (B, S*k, d)
-    buf = x.new_zeros((B, e.n_experts * cap + 1, d))
-    buf.scatter_(1, idx, xrep)
+    xrep = shard_activations(
+        x.repeat_interleave(e.top_k, dim=1))                   # (B, S*k, d)
+    idx = shard_activations(idx)
+    buf = shard_activations(x.new_zeros((B, e.n_experts * cap + 1, d)))
+    buf = shard_activations(buf.scatter(1, idx, xrep))
     expert_in = buf[:, :-1].reshape(B, e.n_experts, cap, d)
 
     expert_out = _expert_ffn(cfg, p, expert_in)
 
     # Gather back (a dropped token reads the appended zero row) and
     # combine with the gates.
-    flat_out = torch.cat([expert_out.reshape(B, e.n_experts * cap, d),
-                          x.new_zeros((B, 1, d))], dim=1)
-    routed = flat_out.gather(1, idx)
+    flat_out = shard_activations(torch.cat(
+        [expert_out.reshape(B, e.n_experts * cap, d),
+         x.new_zeros((B, 1, d))], dim=1))
+    routed = shard_activations(flat_out.gather(1, idx))
     gates = (r["gates"].reshape(B, Tk) * keep).to(x.dtype)
     combined = (routed * gates[..., None]).reshape(B, S, e.top_k, d).sum(2)
 

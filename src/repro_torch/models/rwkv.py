@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.rwkv6.ops import wkv6
+from ..sharding.context import matmul, split_heads, use_weight
 from .layers import _param, normal_init
 
 
@@ -88,12 +89,14 @@ def _mix(x, x_prev, m):
 def _projections(p: TimeMix, x, x_prev, dtype):
     def mix(m):
         return _mix(x, x_prev, m.to(dtype))
-    r = mix(p.mix_r) @ p.wr.to(dtype)
-    k = mix(p.mix_k) @ p.wk.to(dtype)
-    v = mix(p.mix_v) @ p.wv.to(dtype)
-    g = mix(p.mix_g) @ p.wg.to(dtype)
-    dec = torch.tanh(mix(p.mix_w) @ p.w_decay_a.to(dtype)) \
-        @ p.w_decay_b.to(dtype)
+    def col(w):
+        return use_weight(w.to(dtype), (None, "model"))
+    r = matmul(mix(p.mix_r), col(p.wr))
+    k = matmul(mix(p.mix_k), col(p.wk))
+    v = matmul(mix(p.mix_v), col(p.wv))
+    g = matmul(mix(p.mix_g), col(p.wg))
+    dec = matmul(torch.tanh(matmul(mix(p.mix_w), p.w_decay_a.to(dtype))),
+                 p.w_decay_b.to(dtype))
     w = torch.exp(-torch.exp(p.decay_base.float() + dec.float()))
     return r, k, v, g, w
 
@@ -119,12 +122,12 @@ def apply_rwkv_seq(cfg, p: TimeMix, x, state) -> Tuple[torch.Tensor, dict]:
                         x[:, :-1, :]], dim=1)
     r, k, v, g, w = _projections(p, x, x_prev, x.dtype)
     def heads(t):
-        return t.reshape(B, S, H, hd)
+        return split_heads(t, H, hd)
     y, s_final = wkv6(heads(r), heads(k), heads(v), heads(w),
                       p.bonus_u.float(), state["wkv"])
     y = _group_norm(y.reshape(B * S, d), p.ln_x_scale, H).reshape(B, S, d)
     y = y * F.silu(g)
-    out = y @ p.wo.to(x.dtype)
+    out = matmul(y, use_weight(p.wo.to(x.dtype), ("model", None)))
     state["shift"] = x[:, -1, :].float()
     state["wkv"] = s_final
     return out, state
@@ -139,12 +142,12 @@ def apply_rwkv_step(cfg, p: TimeMix, x, state) -> Tuple[torch.Tensor, dict]:
     xt = x[:, 0, :]
     r, k, v, g, w = _projections(p, xt, state["shift"].to(x.dtype), x.dtype)
     def head(t):
-        return t.float().reshape(B, 1, H, hd)
+        return split_heads(t.float()[:, None], H, hd)
     y, S_new = wkv6(head(r), head(k), head(v), head(w), p.bonus_u.float(),
                     state["wkv"])
     y = _group_norm(y.reshape(B, d), p.ln_x_scale, H).to(x.dtype)
     y = y * F.silu(g)
-    out = (y @ p.wo.to(x.dtype))[:, None, :]
+    out = matmul(y, use_weight(p.wo.to(x.dtype), ("model", None)))[:, None, :]
     state["shift"] = xt.float()
     state["wkv"] = S_new
     return out, state
@@ -157,6 +160,9 @@ def apply_channel_mix(cfg, p: ChannelMix, x, shift_state):
                        dim=1)
     xk = _mix(x, x_prev, p.mix_k.to(x.dtype))
     xr = _mix(x, x_prev, p.mix_r.to(x.dtype))
-    k = torch.square(F.relu(xk @ p.wk.to(x.dtype)))
-    r = torch.sigmoid(xr @ p.wr.to(x.dtype))
-    return r * (k @ p.wv.to(x.dtype)), x[:, -1, :]
+    k = torch.square(F.relu(
+        matmul(xk, use_weight(p.wk.to(x.dtype), (None, "model")))))
+    r = torch.sigmoid(matmul(xr, use_weight(p.wr.to(x.dtype),
+                                            (None, None))))
+    return r * matmul(k, use_weight(p.wv.to(x.dtype), ("model", None))), \
+        x[:, -1, :]

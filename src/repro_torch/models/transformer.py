@@ -42,6 +42,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -49,6 +50,8 @@ from . import attention as A
 from . import mamba as M
 from . import moe as MOE
 from . import rwkv as R
+from ..kernels import is_dtensor, kernel_placements
+from ..sharding.context import matmul, shard_activations, use_weight
 from .config import ArchConfig
 from .layers import MLP, Norm, normal_init
 
@@ -249,7 +252,8 @@ def apply_block_seq(cfg, blk: Block, x, positions, *, cache=None,
             c = cache[name]
             if W < S:
                 # ring buffer: token t lives at slot t % W
-                c.copy_(torch.roll(t[:, S - W:].to(c.dtype), S % W, dims=1))
+                tail, r = t[:, S - W:].to(c.dtype), S % W
+                c.copy_(torch.cat([tail[:, W - r:], tail[:, :W - r]], 1))
             else:
                 c[:, :S] = t.to(c.dtype)
         if blk.kind == "hymba":
@@ -286,7 +290,11 @@ def _embed(cfg, params: LM, tokens, frontend=None):
     take the first P positions."""
     # The reference casts the whole table to bf16 and then gathers;
     # gathering the rows first and casting them gives the same values.
-    x = params.embed[tokens.long()].to(torch.bfloat16)
+    # (``F.embedding``: its backward has a DTensor rule in every torch the
+    # port runs on, where indexing's has not.)
+    table = use_weight(params.embed, ("model", None))
+    x = shard_activations(F.embedding(tokens.long(), table).to(
+        torch.bfloat16))
     if cfg.frontend == "vision" and frontend is not None:
         n = frontend.shape[1]
         if n > x.shape[1]:
@@ -317,7 +325,8 @@ def _frontends(cfg, params: LM, batch):
 
 def _logits(cfg, params: LM, x):
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    return (x @ head.to(x.dtype)).float()
+    head = use_weight(head.to(x.dtype), (None, "model"))
+    return matmul(x, head).float()
 
 
 @torch.no_grad()
@@ -369,18 +378,23 @@ def _train_block(cfg, blk: Block, x, positions, use_flash: bool,
 
 
 def forward_train(cfg: ArchConfig, params: LM, batch, use_flash: bool = False,
-                  remat: bool = False):
+                  remat: bool = False, seq_shard: bool = False):
     """batch: dict(tokens (B,S) int, + frames (encoder-decoder) or patches
     (vision) where the config takes them).
     Returns (logits_f32 (B,S,V), {"moe_aux", "moe_z"} f32 scalars).
     ``remat=True`` checkpoints each block (recompute in backward) to bound
     activation memory, as the reference checkpoints each scanned group
-    (its encoder is not checkpointed, nor is this one)."""
+    (its encoder is not checkpointed, nor is this one).  ``seq_shard``
+    shards the residual stream's sequence dim over "model" between blocks
+    (Megatron-style sequence parallelism; a no-op outside a mesh)."""
     tokens = batch["tokens"]
     enc_out, patches = _frontends(cfg, params, batch)
     x = _embed(cfg, params, tokens, patches)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     moe_aux = moe_z = torch.zeros((), dtype=torch.float32, device=x.device)
+    seq_ax = "model" if seq_shard else None
+    if seq_shard:
+        x = shard_activations(x, seq_axis=seq_ax)
     for blk in params.blocks:
         if remat:
             x, a, z = checkpoint(_train_block, cfg, blk, x, positions,
@@ -391,6 +405,8 @@ def forward_train(cfg: ArchConfig, params: LM, batch, use_flash: bool = False,
                                    enc_out)
         moe_aux = moe_aux + a
         moe_z = moe_z + z
+        if seq_shard:
+            x = shard_activations(x, seq_axis=seq_ax)
     x = params.final_norm(x)
     return _logits(cfg, params, x), {"moe_aux": moe_aux, "moe_z": moe_z}
 
@@ -401,6 +417,10 @@ def cross_entropy_loss(logits, labels, z_loss: float = 1e-4):
     reference.  The gold logit is a gather, where the reference uses a
     one-hot reduction for its sharded vocab axis: the values are the same."""
     lse = torch.logsumexp(logits, dim=-1)
+    if is_dtensor(logits):
+        # the gather reads whole vocab rows: gather a sharded vocab first
+        logits = logits.redistribute(
+            placements=kernel_placements(logits, (0, 1)))
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
     loss = torch.mean(lse - gold)
     if z_loss:

@@ -27,6 +27,9 @@ import torch
 import torch.nn.functional as F
 
 BLOCK = 128
+Q8_ON_A_MESH = ("q8 AdamW moments on a mesh of more than one rank: their "
+                "block sharding comes with the dry-run slice "
+                "(launch/specs.py); train with f32 moments")
 
 
 # ----------------------------------------------------------------------
@@ -116,8 +119,12 @@ class AdamW:
 
     # -- state ----------------------------------------------------------
     def _zeros_like(self, p: torch.Tensor, ndim: int) -> Moment:
-        zeros = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        # zeros_like keeps a DTensor parameter's placements
+        zeros = torch.zeros_like(p, dtype=torch.float32)
         if self.quantized and ndim >= 2:
+            mesh = getattr(p, "device_mesh", None)
+            if mesh is not None and mesh.size() > 1:
+                raise NotImplementedError(Q8_ON_A_MESH)
             return Q8State(*quantize_q8(zeros))
         return zeros
 

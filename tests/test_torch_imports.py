@@ -14,15 +14,17 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
-# Modules of the daemon, MoE, training and model-family slices, named so
-# that a missing one fails.
+# Modules of the daemon, MoE, training, model-family and multi-device
+# slices, named so that a missing one fails.
 NEW_MODULES = tuple(f"repro_torch.daemon.{m}" for m in (
     "cli", "client", "jobs", "lifecycle", "monitor", "policy", "server",
     "store", "wire", "__main__")) + ("repro_torch.models.moe",) + tuple(
     f"repro_torch.{m}" for m in (
         "optim", "optim.adamw", "data", "data.pipeline", "checkpoint",
         "checkpoint.manager", "runtime.trainer", "launch", "launch.train",
-        "models.mamba", "launch.serve"))
+        "models.mamba", "launch.serve", "launch.mesh", "sharding",
+        "sharding.context", "sharding.rules", "optim.compress",
+        "runtime.spacesharing", "runtime.pipeline"))
 
 
 def _port_sources():
