@@ -2765,8 +2765,7 @@ def mesh_spacesharing(card: str) -> dict:
           f"two prefills of {cfg.name} (full width, {cfg.n_layers} layers, "
           f"{plen} tokens): {wall:.3f} s, bitwise equal to direct calls "
           f"{equal}, fn_keys {len(keys)}, launches {json.dumps(launches)}, "
-          f"lanes used {stats.get('lanes_used', stats.get('streams'))} "
-          f"({card})")
+          f"lanes_created {stats['lanes_created']} ({card})")
     if not all(equal):
         raise AssertionError("space-shared prefills differ from direct calls")
     if len(keys) != 1 or None in keys:
