@@ -104,7 +104,10 @@ Ten phases, each of which raises on failure (nothing is caught):
    ``SpaceSharedRunner`` on ``SubmeshPool()`` runs two prefills of phase
    3's model bit for bit equal to direct calls, under one declared
    identity; (c) ``launch.serve.main`` on ``rwkv6_1_6b`` as published
-   with ``--model-parallel 2``: its lines, and WKV6 through ``local_map``;
+   with ``--model-parallel 2``: its lines, served on plain tensors (a
+   world of one rank), then ``launch.serve.generate`` with the model on
+   the (1, 1) mesh, WKV6 through ``local_map`` and its tokens equal to
+   the launcher's sample;
    (d) ``compressed_psum`` on a full-width gradient leaf equal to
    ``compress_with_feedback``'s values, timed beside a plain
    ``all_reduce``.  In (a), (b) and (c) a plain version of a kernel
@@ -2778,43 +2781,63 @@ def mesh_spacesharing(card: str) -> dict:
     return launches
 
 
-def mesh_serve_cli(card: str) -> dict:
+def mesh_serve_cli(card: str, mesh) -> dict:
     """10c: ``launch.serve.main`` on rwkv6_1_6b as published with
-    ``--model-parallel 2`` (a (1, 1) mesh on one rank): the reference's
-    two lines, and every WKV6 through ``local_map``."""
+    ``--model-parallel 2``: a world of one rank, served on plain tensors
+    (the reference's two lines, no ``DTensor``); then ``generate`` with
+    the same model placed on the (1, 1) mesh, every WKV6 through
+    ``local_map``, its first row's tokens equal to the launcher's
+    sample."""
     import io
+    import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     cfg = get_config("rwkv6_1_6b")
+    # batch 2, prompt 32, 16 new tokens: one prefill and 15 decode steps
+    # of WKV6 in each of the 24 layers
+    want = {"wkv6": cfg.n_layers * 16, "wkv6_t1": cfg.n_layers * 15,
+            "flash_attention": 0, "rmsnorm": 0}
     buf = io.StringIO()
     reset_launches()
     t0 = time.perf_counter()
-    with kernels_only_on_card() as sharded_calls, \
+    with kernels_only_on_card() as plain_calls, \
             contextlib.redirect_stdout(buf):
         serve.main(["--arch", "rwkv6_1_6b", "--model-parallel", "2"])
     wall = time.perf_counter() - t0
-    launches = read_launches()
+    cli = read_launches()
     lines = buf.getvalue().splitlines()
     sys.stdout.write(buf.getvalue())
     print(f"[mesh] 10c serve --arch rwkv6_1_6b --model-parallel 2: "
-          f"{wall:.2f} s with init; launches {json.dumps(launches)}, "
-          f"DTensor entries {json.dumps(sharded_calls)} ({card})")
+          f"{wall:.2f} s with init; launches {json.dumps(cli)}, "
+          f"DTensor entries {json.dumps(plain_calls)} ({card})")
     if not lines or not lines[0].startswith(
             "device cuda | generated 32 tokens in ") or \
             not lines[1].startswith("sample: [") or \
             lines[-1] != "mesh {'data': 1, 'model': 1}":
         raise AssertionError(f"the serve launcher's lines: {lines}")
-    # batch 2, prompt 32, 16 new tokens: one prefill and 15 decode steps
-    # of WKV6 in each of the 24 layers
-    expect_launches(launches, {"wkv6": cfg.n_layers * 16,
-                               "wkv6_t1": cfg.n_layers * 15,
-                               "flash_attention": 0,
-                               "rmsnorm": 0})
-    if sharded_calls["wkv6"] != launches["wkv6"]:
+    expect_launches(cli, want)
+    if any(plain_calls.values()):
+        raise AssertionError("the launcher's world of one rank placed "
+                             "DTensors")
+    free_card()
+    reset_launches()
+    with kernels_only_on_card() as sharded_calls:
+        out = serve.generate(cfg, device="cuda", mesh=mesh)
+    placed = read_launches()
+    print(f"[mesh] 10c generate on the (1, 1) mesh: {out['seconds']:.2f} s "
+          f"for 32 tokens ({32 / out['seconds']:.1f} tok/s); launches "
+          f"{json.dumps(placed)}, DTensor entries "
+          f"{json.dumps(sharded_calls)} ({card})")
+    expect_launches(placed, want)
+    if sharded_calls["wkv6"] != placed["wkv6"]:
         raise AssertionError("WKV6 did not launch through local_map at "
                              "every call")
+    if lines[1] != f"sample: {np.asarray(out['tokens'][0][:12])}":
+        raise AssertionError(f"the mesh's tokens {out['tokens'][0][:12]} "
+                             f"differ from the launcher's {lines[1]}")
+    del out
     free_card()
-    return launches
+    return {k: cli[k] + placed[k] for k in cli}
 
 
 def mesh_compressed_psum(card: str, mesh) -> None:
@@ -2877,7 +2900,7 @@ def phase_mesh(card: str) -> dict:
         space = mesh_spacesharing(card)
         print(f"[mesh] 10b {time.perf_counter() - t0:.2f} s")
         t0 = time.perf_counter()
-        serve = mesh_serve_cli(card)
+        serve = mesh_serve_cli(card, mesh)
         print(f"[mesh] 10c {time.perf_counter() - t0:.2f} s")
         t0 = time.perf_counter()
         mesh_compressed_psum(card, mesh)

@@ -12,8 +12,10 @@ with the same files, manifest and names.
 A ``DTensor`` leaf is gathered to its full value for ``save`` and placed
 with the placements of ``like``'s leaf by ``restore``, as the reference
 writes ``np.asarray`` of a sharded array and ``device_put``s it back with
-``like``'s sharding.  Every rank writes the whole checkpoint, so in a
-world of more than one rank each rank needs a directory of its own.
+``like``'s sharding.  In a world of more than one rank every rank calls
+``save`` (each gather needs every rank) and only the manager made with
+``writer=True`` (rank 0) keeps the host copies and writes them; every
+rank restores from that one directory.
 
 A train state (an ``LM`` and its AdamW state, ``runtime.steps.TrainState``)
 is written in the reference's layout through ``models.convert``: a
@@ -80,19 +82,26 @@ def _host_copy(leaf: Any) -> np.ndarray:
     return np.array(leaf)
 
 
-def _snapshot(state: Any) -> Dict[str, np.ndarray]:
-    """Host copies of every leaf of ``state``, by name."""
+def _snapshot(state: Any, host: bool = True) -> Dict[str, np.ndarray]:
+    """Host copies of every leaf of ``state``, by name; with ``host=False``
+    only the gathers of its ``DTensor`` leaves, and an empty dict."""
     if _is_train_state(state):
-        return to_jax_layout(state)
+        return to_jax_layout(state, host)
+    if not host:
+        for _, v in _walk(state):
+            if isinstance(v, torch.Tensor):
+                whole(v)
+        return {}
     return {"/".join(p): _host_copy(v) for p, v in _walk(state)}
 
 
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3,
-                 async_save: bool = True) -> None:
+                 async_save: bool = True, writer: bool = True) -> None:
         self.dir = directory
         self.keep = keep
         self.async_save = async_save
+        self.writer = writer
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         # Snapshot-through-spill accounting (save_managed): blocks whose
@@ -135,7 +144,9 @@ class CheckpointManager:
         # two: a full-width train state is tens of GB.
         self.wait()
         # consistent host snapshot (D2H) — synchronous
-        leaves = _snapshot(state)
+        leaves = _snapshot(state, host=self.writer)
+        if not self.writer:              # took part in the gathers only
+            return
         tmp = os.path.join(self.dir, f"step_{step}.tmp")
         final = os.path.join(self.dir, f"step_{step}")
         manifest, pending = {}, []

@@ -11,9 +11,10 @@ Attention takes the plain path (``use_flash=False``, as the reference's
 ``make_prefill_step(cfg)``); RMSNorm (and rwkv6's WKV6) take their
 kernels on the card, on each rank's shard.  Without a process group the
 launcher makes a world of one rank (NCCL on the card, gloo on the CPU: a
-(1, 1) mesh); under ``torchrun --nproc-per-node N`` it uses torchrun's
-world.  Runs on the card unless ``--device cpu``; on the CPU use
-``--reduced``.
+(1, 1) mesh), which serves on plain tensors (the same tokens, without
+``DTensor``'s host cost on every operation); under ``torchrun
+--nproc-per-node N`` it uses torchrun's world.  Runs on the card unless
+``--device cpu``; on the CPU use ``--reduced``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3_12b \\
         --reduced --batch 2 --prompt-len 32 --new-tokens 16 --device cpu
@@ -130,7 +131,8 @@ def main(argv=None) -> None:
         mesh = make_mesh_for(dist.get_world_size(), args.model_parallel)
         rank = dist.get_rank()
         out = generate(cfg, batch=args.batch, prompt_len=args.prompt_len,
-                       new_tokens=args.new_tokens, device=device, mesh=mesh)
+                       new_tokens=args.new_tokens, device=device,
+                       mesh=mesh if mesh.size() > 1 else None)
     finally:
         if made:
             dist.destroy_process_group()

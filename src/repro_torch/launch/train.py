@@ -10,10 +10,13 @@ the reference prints them, so that an interrupted and resumed run can be
 held digit for digit against an uninterrupted one.
 
 Without a process group the launcher makes a world of one rank (NCCL on
-the card, gloo on the CPU; a (1, 1) mesh); under ``torchrun
---nproc-per-node N`` it uses torchrun's world, one card per rank, and each
-rank of a world of more than one checkpoints under ``--ckpt``/rank<N>.
-Runs on the card unless ``--device cpu``; on the CPU use ``--reduced``.
+the card, gloo on the CPU; a (1, 1) mesh), and a world of one rank steps
+on plain tensors: the same numbers, without ``DTensor``'s host cost on
+every operation.  Under ``torchrun --nproc-per-node N`` it uses
+torchrun's world, one card per rank; every rank takes part in a
+checkpoint's gathers and rank 0 alone writes it under ``--ckpt``, which
+every rank reads back on resume.  Runs on the card unless ``--device
+cpu``; on the CPU use ``--reduced``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_32b \\
         --reduced --steps 20 --ckpt /tmp/ckpt --device cpu
@@ -21,7 +24,7 @@ Runs on the card unless ``--device cpu``; on the CPU use ``--reduced``.
 from __future__ import annotations
 
 import argparse
-import os
+import contextlib
 import time
 
 import torch
@@ -85,11 +88,13 @@ def _train(args, device) -> None:
         mesh = make_mesh_for(dist.get_world_size(), args.model_parallel)
     say(f"device: {device.type} | mesh: {mesh_axes(mesh)} | "
           f"params(full-cfg) {cfg.param_count()/1e6:.1f}M")
+    sharded = mesh.size() > 1        # one rank: plain tensors
 
     optimizer = AdamW(lr=3e-4, warmup=20, total_steps=max(100, args.steps))
     params = init_lm(cfg, torch.Generator(device=device).manual_seed(0),
                      device=device)
-    logical_to_physical(mesh, params, param_sharding(params, mesh))
+    if sharded:
+        logical_to_physical(mesh, params, param_sharding(params, mesh))
     state = TrainState(params, optimizer.init(params))
     stream = SyntheticTokenStream(cfg, args.seq, args.global_batch,
                                   accum=args.accum)
@@ -99,13 +104,11 @@ def _train(args, device) -> None:
     train_step = make_train_step(cfg, optimizer)
 
     def step_fn(st, batch):
-        with sharding_rules(mesh):
+        with sharding_rules(mesh) if sharded else contextlib.nullcontext():
             return train_step(st, batch)
 
-    ckpt_dir = args.ckpt
-    if ckpt_dir and dist.get_world_size() > 1:
-        ckpt_dir = os.path.join(ckpt_dir, f"rank{dist.get_rank()}")
-    ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    ckpt = (CheckpointManager(args.ckpt, writer=dist.get_rank() == 0)
+            if args.ckpt else None)
     start = 0
     if ckpt:
         # (step, state) resolved atomically: resuming the loop from a
@@ -123,8 +126,10 @@ def _train(args, device) -> None:
 
     t0 = time.time()
     for step in range(start, args.steps):
-        batch = {k: place(torch.from_numpy(v).to(device), b_sh[k])
+        batch = {k: torch.from_numpy(v).to(device)
                  for k, v in stream.batch(step).items()}
+        if sharded:
+            batch = {k: place(v, b_sh[k]) for k, v in batch.items()}
         state, metrics = step_fn(state, batch)
         if (step + 1) % 5 == 0 or step == args.steps - 1:
             say(f"step {step+1}: loss={float(metrics['loss']):.4f} "
@@ -134,6 +139,7 @@ def _train(args, device) -> None:
             ckpt.save(step + 1, state, extra={"stream_seed": stream.seed})
     if ckpt:
         ckpt.wait()
+        dist.barrier()               # rank 0's last checkpoint is on disk
     dt = time.time() - t0
     toks = (args.steps - start) * args.global_batch * args.seq
     say(f"done: {dt:.1f}s, {toks/dt:.0f} tok/s")

@@ -18,7 +18,7 @@ from torch import nn
 
 from ..kernels import is_dtensor, on_shards
 from ..kernels.flash_attention.ops import flash_attention
-from ..sharding.context import (align_heads, matmul, pin_attention_blocks,
+from ..sharding.context import (align_heads, pin_attention_blocks,
                                 shard_heads, split_heads, use_weight)
 from .layers import _param, apply_rope, normal_init, rms_norm_heads, \
     rope_angles
@@ -53,8 +53,7 @@ def _project_qkv(cfg, p: Attention, xq, xkv):
     hd = cfg.hd
 
     def project(src, w, n_heads):
-        return split_heads(matmul(src, use_weight(w.to(xq.dtype),
-                                                  (None, "model"))),
+        return split_heads(src @ use_weight(w.to(xq.dtype), (None, "model")),
                            n_heads, hd)
     q = project(xq, p.wq, cfg.n_heads)
     k = project(xkv, p.wk, cfg.n_kv_heads)
@@ -289,7 +288,7 @@ def attend_full(cfg, p: Attention, x, positions, *, window: int = 0,
         mask = None if bidirectional else causal_mask(S, S, window,
                                                       device=x.device)
         o = _sdpa(cfg, q, k, v, mask)
-    return matmul(o, use_weight(p.wo.to(x.dtype), ("model", None))), (k, v)
+    return o @ use_weight(p.wo.to(x.dtype), ("model", None)), (k, v)
 
 
 def attend_cross(cfg, p: Attention, x, kv_src):
@@ -297,17 +296,17 @@ def attend_cross(cfg, p: Attention, x, kv_src):
     source).  Returns (out, (k, v)) so prefill can fill the cross cache."""
     q, k, v = _project_qkv(cfg, p, x, kv_src)
     o = _sdpa(cfg, q, k, v, None)
-    return matmul(o, use_weight(p.wo.to(x.dtype), ("model", None))), (k, v)
+    return o @ use_weight(p.wo.to(x.dtype), ("model", None)), (k, v)
 
 
 def attend_cross_decode(cfg, p: Attention, x, cache):
     """One token's cross-attention against the cached ``cross_k`` and
     ``cross_v``: ``wq`` only, no rope."""
-    q = split_heads(matmul(x, use_weight(p.wq.to(x.dtype), (None, "model"))),
+    q = split_heads(x @ use_weight(p.wq.to(x.dtype), (None, "model")),
                     cfg.n_heads, cfg.hd)
     o = _sdpa(cfg, shard_heads(q), cache["cross_k"].to(x.dtype),
               cache["cross_v"].to(x.dtype), None)
-    return matmul(o, use_weight(p.wo.to(x.dtype), ("model", None)))
+    return o @ use_weight(p.wo.to(x.dtype), ("model", None))
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, device,
@@ -347,5 +346,5 @@ def attend_decode(cfg, p: Attention, x, cache, pos: int, *, window: int = 0):
         if window > 0:
             m &= (pos - kj) < window
     o = _sdpa(cfg, q, k.to(x.dtype), v.to(x.dtype), m)
-    out = matmul(o, use_weight(p.wo.to(x.dtype), ("model", None)))
+    out = o @ use_weight(p.wo.to(x.dtype), ("model", None))
     return out, {"k": k, "v": v}

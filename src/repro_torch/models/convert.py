@@ -136,24 +136,27 @@ def _host_array(shape, t: torch.Tensor) -> np.ndarray:
 
 
 def _stack_into(out: Dict[str, np.ndarray], prefix: str, cfg: ArchConfig,
-                leaves: Dict[str, torch.Tensor]) -> None:
+                leaves: Dict[str, torch.Tensor], host: bool = True) -> None:
     """Host copies of ``leaves``, stacked by layer group where the
-    reference stacks them; each device tensor is copied straight into its
-    slice."""
+    reference stacks them; each device tensor is gathered whole (every
+    rank takes part) and copied straight into its slice, one at a time.
+    With ``host=False`` only the gathers are made."""
     groups: Dict[str, list] = {}
     for n, t in leaves.items():
         path, g = reference_path(cfg, n)
-        groups.setdefault(path, []).append((g, whole(t.detach())))
+        groups.setdefault(path, []).append((g, t.detach()))
     for path, members in groups.items():
-        t0 = members[0][1]
-        if members[0][0] is None:
-            arr = _host_array(t0.shape, t0)
-            torch.from_numpy(arr).copy_(t0)
-        else:
-            arr = _host_array((len(members),) + tuple(t0.shape), t0)
-            for g, t in members:
-                torch.from_numpy(arr[g]).copy_(t)
-        out[prefix + path] = arr
+        arr = None
+        for g, t in members:
+            t = whole(t)
+            if not host:
+                continue
+            if arr is None:
+                arr = _host_array(tuple(t.shape) if g is None
+                                  else (len(members),) + tuple(t.shape), t)
+            torch.from_numpy(arr if g is None else arr[g]).copy_(t)
+        if host:
+            out[prefix + path] = arr
 
 
 def _fill_from(flat: Mapping[str, np.ndarray], prefix: str, cfg: ArchConfig,
@@ -170,17 +173,20 @@ def _fill_from(flat: Mapping[str, np.ndarray], prefix: str, cfg: ArchConfig,
             _fill_placed(t, torch.from_numpy(np.array(arr)))
 
 
-def to_jax_layout(state) -> Dict[str, np.ndarray]:
+def to_jax_layout(state, host: bool = True) -> Dict[str, np.ndarray]:
     """Host copies of a train state's leaves (``state.params``, an ``LM``;
     ``state.opt``, its ``AdamWState``), named and stacked as the
-    reference's checkpoint of its ``TrainState``."""
+    reference's checkpoint of its ``TrainState``.  With ``host=False`` a
+    rank takes part in the gathers of ``DTensor`` leaves and keeps
+    nothing (an empty dict)."""
     model, opt = state.params, state.opt
     cfg = model.cfg
     out: Dict[str, np.ndarray] = {}
-    _stack_into(out, "params/", cfg, dict(model.named_parameters()))
-    out["opt/step"] = np.asarray(opt.step, np.int32)
-    _stack_into(out, "opt/m/", cfg, _tensor_leaves(opt.m))
-    _stack_into(out, "opt/v/", cfg, _tensor_leaves(opt.v))
+    _stack_into(out, "params/", cfg, dict(model.named_parameters()), host)
+    if host:
+        out["opt/step"] = np.asarray(opt.step, np.int32)
+    _stack_into(out, "opt/m/", cfg, _tensor_leaves(opt.m), host)
+    _stack_into(out, "opt/v/", cfg, _tensor_leaves(opt.v), host)
     return out
 
 

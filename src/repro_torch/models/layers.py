@@ -19,7 +19,7 @@ from torch import nn
 
 from ..kernels import is_dtensor, kernel_placements
 from ..kernels.rmsnorm.ops import rmsnorm
-from ..sharding.context import matmul, use_weight
+from ..sharding.context import use_weight
 
 
 def normal_init(shape, generator: Optional[torch.Generator], device,
@@ -116,17 +116,15 @@ class MLP(nn.Module):
                                       dtype=dtype)
 
     def forward(self, x):
-        h = matmul(x, use_weight(self.w_in.to(x.dtype), (None, "model")))
+        h = x @ use_weight(self.w_in.to(x.dtype), (None, "model"))
         if self.kind == "swiglu":
-            g = matmul(x, use_weight(self.w_gate.to(x.dtype),
-                                     (None, "model")))
+            g = x @ use_weight(self.w_gate.to(x.dtype), (None, "model"))
             h = F.silu(g) * h
         elif self.kind == "geglu":
-            g = matmul(x, use_weight(self.w_gate.to(x.dtype),
-                                     (None, "model")))
+            g = x @ use_weight(self.w_gate.to(x.dtype), (None, "model"))
             h = F.gelu(g, approximate="tanh") * h
         elif self.kind == "relu2":                 # nemotron squared-ReLU
             h = torch.square(F.relu(h))
         else:                                      # gelu (starcoder2)
             h = F.gelu(h, approximate="tanh")
-        return matmul(h, use_weight(self.w_out.to(x.dtype), ("model", None)))
+        return h @ use_weight(self.w_out.to(x.dtype), ("model", None))

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..sharding.context import matmul, use_weight
+from ..sharding.context import shard_activations, use_weight
 from .layers import _param, normal_init
 
 CHUNK = 256
@@ -77,8 +77,11 @@ def _features(cfg, p: Mamba, u_conv):
     """Input-dependent SSM parameters from the conv'd activation."""
     dt = F.softplus(u_conv * p.w_dt.to(u_conv.dtype)[:, 0]
                     + p.dt_bias.to(u_conv.dtype))
-    B = matmul(u_conv, p.w_B.to(u_conv.dtype))
-    C = matmul(u_conv, p.w_C.to(u_conv.dtype))
+    # With ``inner`` sharded these are partial sums on each rank, and the
+    # scan's operations take no partial operand: reduce them here (GSPMD
+    # reduces them where the reference's scan reads them).
+    B = shard_activations(u_conv @ p.w_B.to(u_conv.dtype))
+    C = shard_activations(u_conv @ p.w_C.to(u_conv.dtype))
     return dt, B, C
 
 
@@ -136,7 +139,7 @@ def apply_mamba_seq(cfg, p: Mamba, x, state) -> Tuple[torch.Tensor, dict]:
     state, float32)."""
     B, S, d = x.shape
     inner = cfg.ssm.expand * d
-    uz = matmul(x, use_weight(p.w_in.to(x.dtype), (None, "model")))
+    uz = x @ use_weight(p.w_in.to(x.dtype), (None, "model"))
     u, z = uz[..., :inner], uz[..., inner:]
     u, conv_state = _causal_conv_seq(p, u, state["conv"])
     dt, Bm, Cm = _features(cfg, p, u)
@@ -165,14 +168,14 @@ def apply_mamba_seq(cfg, p: Mamba, x, state) -> Tuple[torch.Tensor, dict]:
     y = torch.cat(ys, dim=1)
     y = y.to(x.dtype) + u * p.D.to(x.dtype)[None, None]
     y = y * F.silu(z)
-    out = matmul(y, use_weight(p.w_out.to(x.dtype), ("model", None)))
+    out = y @ use_weight(p.w_out.to(x.dtype), ("model", None))
     return out, {"h": h, "conv": conv_state.float()}
 
 
 def apply_mamba_step(cfg, p: Mamba, x, state) -> Tuple[torch.Tensor, dict]:
     """x: (B, 1, d) decode — O(1) update."""
     inner = cfg.ssm.expand * x.shape[-1]
-    uz = matmul(x[:, 0], use_weight(p.w_in.to(x.dtype), (None, "model")))
+    uz = x[:, 0] @ use_weight(p.w_in.to(x.dtype), (None, "model"))
     u_raw, z = uz[..., :inner], uz[..., inner:]
     window = torch.cat([state["conv"].to(x.dtype), u_raw[:, None, :]], dim=1)
     u = F.silu(torch.einsum("bki,ki->bi", window, p.conv_w.to(x.dtype)))
@@ -185,6 +188,5 @@ def apply_mamba_step(cfg, p: Mamba, x, state) -> Tuple[torch.Tensor, dict]:
     y = torch.einsum("bin,bn->bi", h, Cm.float()).to(x.dtype)
     y = y + u * p.D.to(x.dtype)[None]
     y = y * F.silu(z)
-    out = (matmul(y, use_weight(p.w_out.to(x.dtype), ("model", None)))
-           )[:, None, :]
+    out = (y @ use_weight(p.w_out.to(x.dtype), ("model", None)))[:, None, :]
     return out, {"h": h, "conv": window[:, 1:, :].float()}

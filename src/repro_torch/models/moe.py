@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..sharding.context import einsum, shard_activations, use_weight
+from ..sharding.context import shard_activations, use_weight
 from .layers import MLP, normal_init
 
 
@@ -109,21 +109,21 @@ def _expert_ffn(cfg, p: MoE, x):
     """x: (B, E, C, d) -> (B, E, C, d), batched over row and expert.
     Expert weights are constrained to EP (expert axis over "model") when
     the expert count divides, else to TP on the expert FFN dim."""
-    h = einsum("becd,edf->becf", x,
+    h = torch.einsum("becd,edf->becf", x,
                      use_weight(p.w_in.to(x.dtype), *_EP_IN))
     if cfg.mlp == "swiglu":
-        g = einsum("becd,edf->becf", x,
+        g = torch.einsum("becd,edf->becf", x,
                          use_weight(p.w_gate.to(x.dtype), *_EP_IN))
         h = F.silu(g) * h
     elif cfg.mlp == "geglu":
-        g = einsum("becd,edf->becf", x,
+        g = torch.einsum("becd,edf->becf", x,
                          use_weight(p.w_gate.to(x.dtype), *_EP_IN))
         h = F.gelu(g, approximate="tanh") * h
     elif cfg.mlp == "relu2":
         h = torch.square(F.relu(h))
     else:
         h = F.gelu(h, approximate="tanh")
-    return einsum("becf,efd->becd", h,
+    return torch.einsum("becf,efd->becd", h,
                         use_weight(p.w_out.to(x.dtype), *_EP_OUT))
 
 

@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.rwkv6.ops import wkv6
-from ..sharding.context import matmul, split_heads, use_weight
+from ..sharding.context import split_heads, use_weight
 from .layers import _param, normal_init
 
 
@@ -91,12 +91,12 @@ def _projections(p: TimeMix, x, x_prev, dtype):
         return _mix(x, x_prev, m.to(dtype))
     def col(w):
         return use_weight(w.to(dtype), (None, "model"))
-    r = matmul(mix(p.mix_r), col(p.wr))
-    k = matmul(mix(p.mix_k), col(p.wk))
-    v = matmul(mix(p.mix_v), col(p.wv))
-    g = matmul(mix(p.mix_g), col(p.wg))
-    dec = matmul(torch.tanh(matmul(mix(p.mix_w), p.w_decay_a.to(dtype))),
-                 p.w_decay_b.to(dtype))
+    r = mix(p.mix_r) @ col(p.wr)
+    k = mix(p.mix_k) @ col(p.wk)
+    v = mix(p.mix_v) @ col(p.wv)
+    g = mix(p.mix_g) @ col(p.wg)
+    dec = torch.tanh(mix(p.mix_w) @ p.w_decay_a.to(dtype)) \
+        @ p.w_decay_b.to(dtype)
     w = torch.exp(-torch.exp(p.decay_base.float() + dec.float()))
     return r, k, v, g, w
 
@@ -127,7 +127,7 @@ def apply_rwkv_seq(cfg, p: TimeMix, x, state) -> Tuple[torch.Tensor, dict]:
                       p.bonus_u.float(), state["wkv"])
     y = _group_norm(y.reshape(B * S, d), p.ln_x_scale, H).reshape(B, S, d)
     y = y * F.silu(g)
-    out = matmul(y, use_weight(p.wo.to(x.dtype), ("model", None)))
+    out = y @ use_weight(p.wo.to(x.dtype), ("model", None))
     state["shift"] = x[:, -1, :].float()
     state["wkv"] = s_final
     return out, state
@@ -147,7 +147,7 @@ def apply_rwkv_step(cfg, p: TimeMix, x, state) -> Tuple[torch.Tensor, dict]:
                     state["wkv"])
     y = _group_norm(y.reshape(B, d), p.ln_x_scale, H).to(x.dtype)
     y = y * F.silu(g)
-    out = matmul(y, use_weight(p.wo.to(x.dtype), ("model", None)))[:, None, :]
+    out = (y @ use_weight(p.wo.to(x.dtype), ("model", None)))[:, None, :]
     state["shift"] = xt.float()
     state["wkv"] = S_new
     return out, state
@@ -161,8 +161,7 @@ def apply_channel_mix(cfg, p: ChannelMix, x, shift_state):
     xk = _mix(x, x_prev, p.mix_k.to(x.dtype))
     xr = _mix(x, x_prev, p.mix_r.to(x.dtype))
     k = torch.square(F.relu(
-        matmul(xk, use_weight(p.wk.to(x.dtype), (None, "model")))))
-    r = torch.sigmoid(matmul(xr, use_weight(p.wr.to(x.dtype),
-                                            (None, None))))
-    return r * matmul(k, use_weight(p.wv.to(x.dtype), ("model", None))), \
+        xk @ use_weight(p.wk.to(x.dtype), (None, "model"))))
+    r = torch.sigmoid(xr @ use_weight(p.wr.to(x.dtype), (None, None)))
+    return r * (k @ use_weight(p.wv.to(x.dtype), ("model", None))), \
         x[:, -1, :]

@@ -51,7 +51,7 @@ from . import mamba as M
 from . import moe as MOE
 from . import rwkv as R
 from ..kernels import is_dtensor, kernel_placements
-from ..sharding.context import matmul, shard_activations, use_weight
+from ..sharding.context import shard_activations, use_weight
 from .config import ArchConfig
 from .layers import MLP, Norm, normal_init
 
@@ -326,7 +326,7 @@ def _frontends(cfg, params: LM, batch):
 def _logits(cfg, params: LM, x):
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     head = use_weight(head.to(x.dtype), (None, "model"))
-    return matmul(x, head).float()
+    return (x @ head).float()
 
 
 @torch.no_grad()

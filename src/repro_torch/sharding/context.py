@@ -22,9 +22,7 @@ import threading
 from contextlib import contextmanager
 from typing import Optional, Sequence, Tuple
 
-import torch
-
-from ..kernels import mesh_factor
+from ..kernels import is_dtensor, mesh_factor
 from ..launch.mesh import mesh_axes
 
 _STATE = threading.local()
@@ -61,8 +59,9 @@ def sharding_rules(mesh):
 
 
 def _active(x) -> bool:
-    from torch.distributed.tensor import DTensor
-    return _mesh_axes() is not None and isinstance(x, DTensor)
+    # is_dtensor: a plain path never imports the distributed tensor
+    # package (its first import costs seconds)
+    return _mesh_axes() is not None and is_dtensor(x)
 
 
 def _fit(spec: Sequence, shape: Tuple[int, ...]) -> Optional[tuple]:
@@ -101,52 +100,6 @@ def use_weight(w, *candidate_specs):
         if any(a is not None for a in p):
             return _constrain(w, p)
     return _constrain(w, (None,) * w.ndim)
-
-
-class _GradLike(torch.autograd.Function):
-    """Identity forward; the backward brings the gradient to the forward
-    value's placements, reducing its partial sums in the gradient's own
-    dtype (float32 below)."""
-
-    @staticmethod
-    def forward(ctx, x):
-        ctx.layout = (x.device_mesh, x.placements)
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        from torch.distributed.tensor import Replicate
-        mesh, pl = ctx.layout
-        # the gradient of a partial value is whole on every rank
-        return g.redistribute(mesh, [Replicate() if p.is_partial() else p
-                                     for p in pl])
-
-
-def _product(fn, x, w):
-    """``fn(x, w)``; on a mesh of more than one rank a bf16 product whose
-    contraction spans ranks is formed in float32, its partial sums (and
-    those of both gradients) reduced in float32 and rounded to bf16 once,
-    as the unsharded product rounds its float32 accumulation once.  On one
-    rank, and on plain tensors, it is ``fn(x, w)`` itself."""
-    if not (_active(x) and x.dtype == torch.bfloat16
-            and x.device_mesh.size() > 1):
-        return fn(x, w)
-    from torch.distributed.tensor import Replicate
-    y = fn(_GradLike.apply(x.float()), _GradLike.apply(w.float()))
-    y = y.redistribute(y.device_mesh, [Replicate() if p.is_partial() else p
-                                       for p in y.placements])
-    return y.to(x.dtype)
-
-
-def matmul(x, w):
-    """``x @ w`` at a weight's use site (see ``_product``)."""
-    return _product(torch.matmul, x, w)
-
-
-def einsum(eq: str, x, w):
-    """``torch.einsum(eq, x, w)`` at a weight's use site (see
-    ``_product``)."""
-    return _product(lambda a, b: torch.einsum(eq, a, b), x, w)
 
 
 def shard_activations(x, *, seq_axis=None):
