@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Ten phases, each of which raises on failure (nothing is caught):
+Eleven phases, each of which raises on failure (nothing is caught):
 
 1. build: compiles every CUDA kernel of the port from ``src/repro_torch``
    with ``nvcc`` (one process per source, all at once) into ``build/``,
@@ -111,7 +111,23 @@ Ten phases, each of which raises on failure (nothing is caught):
    (d) ``compressed_psum`` on a full-width gradient leaf equal to
    ``compress_with_feedback``'s values, timed beside a plain
    ``all_reduce``.  In (a), (b) and (c) a plain version of a kernel
-   called on the card fails the phase.
+   called on the card fails the phase;
+11. the dry run, in a process of its own: (a) ``python -m
+   repro_torch.launch.dryrun`` on ``qwen3_32b`` x train_4k on (16, 16),
+   ``nemotron_4_340b`` x train_4k on (2, 16, 16) with q8 moments and
+   ``rwkv6_1_6b`` x long_500k on (16, 16), each in a process of its own
+   on fake CUDA tensors in a fake world of 256 or 512 ranks: each cell's
+   roofline terms, peak and trace time, every kernel counted as launches
+   of its operator (WKV6 once a layer: no plain loop); (b) phase 8b's cell
+   (``qwen3_32b`` at full width, 2 layers, seq 128, batch 8, accum 2) on
+   the (1, 1) mesh of an NCCL world of one rank, counted on fake tensors
+   by ``build_cell`` and ``count_step``, then the same step run on the
+   card under the same counter: the flops equal to 1e-6, RMSNorm 34
+   launches, the predicted peak against ``max_memory_allocated()`` of the
+   counted step and of the step without the counter (ratios held in
+   ``PEAK_RATIO`` and ``PEAK_RATIO_UNCOUNTED``), the step's time beside
+   the counted roofline terms and its share of the bf16 peak; a plain
+   version of a kernel called on the card fails the phase.
 
 Each serving phase, phase 8b's first run and 9c's launcher run set every kernel's launch
 count to 0 just before it runs and reads the counts just after.
@@ -2926,6 +2942,210 @@ def phase_mesh_process() -> dict:
     return json.loads(lines[-1])
 
 
+# The dry run, in a process of its own: 11a three production cells of
+# ``launch.dryrun`` on fake CUDA tensors in fake worlds of 256 and 512
+# ranks, each in a process of its own, all at once; 11b phase 8b's step
+# counted on fake tensors (``build_cell``, ``count_step``), then run on the
+# card under the same counter over an NCCL world of one rank.
+DRYRUN_ONLY = "--phase-11-process"
+DRYRUN_CELLS = [("qwen3_32b", "train_4k", False),
+                ("nemotron_4_340b", "train_4k", True),
+                ("rwkv6_1_6b", "long_500k", False)]
+# Each cell's kernel calls a step: qwen3's RMSNorms (4 a layer and the
+# final norm forward, the layers' 4 again in remat's recompute; 64 layers,
+# 16 microbatches), none in nemotron's (LayerNorm, and training takes the
+# plain attention), rwkv6's one WKV6 a layer (24) in a decode step: the
+# plain loop would count none.
+DRYRUN_KERNELS = {"qwen3_32b": {"rmsnorm": (2 * 4 * 64 + 1) * 16},
+                  "nemotron_4_340b": {}, "rwkv6_1_6b": {"wkv6": 24}}
+# 11b's predicted peak (the fake trace's MemTracker) over the card's
+# max_memory_allocated(), in the counted step and in the same step run
+# without the counter, is held inside these bands: 0.8146 and 1.0622 in
+# the first runs (PERF.md §6), give or take 5%.  The counter's dispatch
+# mode makes the card's step hold 13.3 GiB more.
+PEAK_RATIO = (0.77, 0.86)
+PEAK_RATIO_UNCOUNTED = (1.01, 1.11)
+
+
+def dryrun_cells(card: str, out: str) -> None:
+    """11a: each cell by ``python -m repro_torch.launch.dryrun`` in a
+    process of its own; every kernel of a cell's path counted as launches
+    of its operator (WKV6 at 24 a decode step, so no plain loop ran), q8
+    moments in nemotron's."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    procs = []
+    t0 = time.perf_counter()
+    for arch, shape, multi in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out", out] + (
+            ["--multi-pod"] if multi else [])
+        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True,
+                                      env=env))
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    wall = time.perf_counter() - t0
+    for (arch, shape, multi), p, log in zip(DRYRUN_CELLS, procs, logs):
+        sys.stdout.write("".join(line + "\n" for line in log.splitlines()
+                                 if line.startswith(("[", "  "))))
+        if p.returncode:
+            sys.stdout.write(log[-3000:])
+            raise AssertionError(f"dry run of {arch} x {shape} failed "
+                                 f"(exit {p.returncode})")
+        tag = f"{arch}__{shape}__{'multi' if multi else 'single'}"
+        with open(os.path.join(out, tag + ".json")) as f:
+            res = json.load(f)
+        r, h, m = res["roofline"], res["hlo"], res["memory"]
+        print(f"[dryrun] 11a {tag}: traced in {res['compile_s']} s; peak "
+              f"{m['peak_bytes_per_device'] / 2**30:.2f} GiB a device "
+              f"(fits {m['fits_hbm']}); compute {r['compute_s']:.6f} s, "
+              f"memory {r['memory_s']:.6f} s, collective "
+              f"{r['collective_s']:.6f} s -> {r['dominant']}, roofline "
+              f"{r['roofline_fraction']:.4f}, useful "
+              f"{r['useful_flops_ratio']:.4f}; kernels "
+              f"{json.dumps(h['kernel_launches'])}; counted from H100 "
+              f"datasheet constants, not measured ({card})")
+        if h["kernel_launches"] != DRYRUN_KERNELS[arch]:
+            raise AssertionError(f"{tag}: kernels counted "
+                                 f"{h['kernel_launches']}, not "
+                                 f"{DRYRUN_KERNELS[arch]}")
+        if arch == "nemotron_4_340b" and not res["meta"]["quantized_opt"]:
+            raise AssertionError("nemotron's train cell ran without q8 "
+                                 "moments")
+    print(f"[dryrun] 11a three cells at once: {wall:.2f} s")
+
+
+def dryrun_against_step(card: str) -> dict:
+    """11b: phase 8b's cell counted on fake tensors, then the same step on
+    the card under the same counter: the flops equal, the peak predicted
+    beside the one measured, the step's time beside the roofline."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenStream
+    from repro_torch.launch.dryrun import roofline_terms, trace
+    from repro_torch.launch.hlostats import count_step
+    from repro_torch.launch.mesh import (PEAK_BF16_FLOPS, init_world,
+                                         make_mesh_for)
+    from repro_torch.launch.specs import build_cell, make_optimizer
+    from repro_torch.models import init_lm
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.runtime.steps import TrainState
+    from repro_torch.sharding.rules import (NamedSharding, batch_spec,
+                                            logical_to_physical,
+                                            param_sharding, place)
+
+    cfg = dataclasses.replace(get_config("qwen3_32b"), n_layers=2)
+    cell = ShapeCell("phase 8b", TRAIN_SEQ, TRAIN_BATCH, "train")
+    plan = (TRAIN_ACCUM, TRAIN_BATCH // TRAIN_ACCUM)
+    init_world("cuda")
+    try:
+        mesh = make_mesh_for(dist.get_world_size(), 2)
+        t0 = time.perf_counter()
+        low = build_cell(cfg, cell, mesh, plan=plan)
+        fake, peak = trace(low)
+        t_fake = time.perf_counter() - t0
+        step = low.fn          # the cell's step, run on the card's tensors
+        del low
+        predicted = peak["Total"]
+        opt = make_optimizer(cfg)
+        model = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+        logical_to_physical(mesh, model, param_sharding(model, mesh))
+        state = TrainState(model, opt.init(model))
+        bs = batch_spec(mesh)
+        stream = SyntheticTokenStream(cfg, TRAIN_SEQ, TRAIN_BATCH,
+                                      accum=TRAIN_ACCUM)
+        batch = {k: place(torch.from_numpy(v).cuda(),
+                          NamedSharding(mesh, (None,) + bs[k]))
+                 for k, v in stream.batch(0).items()}
+        # the peak of the step itself, with the state in place (making and
+        # placing the weights holds some of them twice for a moment)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with kernels_only_on_card():
+            real, dt_counted = sync_time(lambda: count_step(step, state,
+                                                            batch))
+        launches = read_launches()
+        measured = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times = [sync_time(lambda: step(state, batch))[1] for _ in range(3)]
+        uncounted = torch.cuda.max_memory_allocated()
+    finally:
+        dist.destroy_process_group()
+    rel = abs(real.flops - fake.flops) / fake.flops
+    ratio = predicted / measured
+    step_s = float(np.median(times))
+    r = roofline_terms(fake, None, 1, cfg, cell)
+    share = r["model_flops_per_device"] / (step_s * PEAK_BF16_FLOPS)
+    print(f"[dryrun] 11b qwen3_32b full width, 2 layers, seq {TRAIN_SEQ}, "
+          f"batch {TRAIN_BATCH}, accum {TRAIN_ACCUM} on a (1, 1) mesh: "
+          f"fake count {fake.flops:.6e} flops in {t_fake:.2f} s, the card's "
+          f"step under the counter {real.flops:.6e} flops (relative "
+          f"difference {rel:.3e}) in {dt_counted:.2f} s; kernels counted "
+          f"{json.dumps(dict(real.kernel_launches))}, launched "
+          f"{json.dumps(launches)} ({card})")
+    print(f"[dryrun] 11b peak: predicted {predicted / 2**30:.3f} GiB, "
+          f"measured {measured / 2**30:.3f} GiB (max_memory_allocated over "
+          f"the counted step), ratio {ratio:.4f}; the three steps without "
+          f"the counter {uncounted / 2**30:.3f} GiB, ratio "
+          f"{predicted / uncounted:.4f} ({card})")
+    print(f"[dryrun] 11b step {step_s:.4f} s (steps {json.dumps(times)}) "
+          f"against the counted roofline: compute {r['compute_s']:.6f} s, "
+          f"memory {r['memory_s']:.6f} s, collective {r['collective_s']:.6f}"
+          f" s ({r['dominant']}); model flops {r['model_flops_per_device']:.4e}"
+          f" = {share:.4f} of the step at the bf16 peak ({card})")
+    if rel > 1e-6:
+        raise AssertionError(f"the card's step counted {real.flops} flops, "
+                             f"the fake one {fake.flops}")
+    expect_launches(launches, {"rmsnorm": RMS_PER_STEP, "flash_attention": 0,
+                               "wkv6": 0})
+    if dict(real.kernel_launches) != {"rmsnorm": RMS_PER_STEP} or dict(
+            fake.kernel_launches) != {"rmsnorm": RMS_PER_STEP}:
+        raise AssertionError(f"kernels counted {dict(real.kernel_launches)} "
+                             f"on the card, {dict(fake.kernel_launches)} "
+                             f"fake")
+    for r, band in ((ratio, PEAK_RATIO),
+                    (predicted / uncounted, PEAK_RATIO_UNCOUNTED)):
+        if not band[0] <= r <= band[1]:
+            raise AssertionError(f"predicted over measured peak {r:.4f} "
+                                 f"outside {band}")
+    del model, state, batch
+    free_card()
+    return launches
+
+
+def phase_dryrun(card: str) -> dict:
+    import tempfile
+    import torch
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    if held >= 2**30:
+        raise AssertionError("an earlier phase left over 1 GiB on the card")
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        dryrun_cells(card, out)
+        print(f"[dryrun] 11a {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    launches = dryrun_against_step(card)
+    print(f"[dryrun] 11b {time.perf_counter() - t0:.2f} s")
+    print(f"[dryrun] phase {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
+def phase_dryrun_process() -> dict:
+    """Phase 11 in a process of its own, as phases 8 to 10: returns 11b's
+    launch counts, which the child prints on its last line."""
+    cmd = [sys.executable, os.path.abspath(__file__), DRYRUN_ONLY]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    sys.stdout.write(res.stdout)
+    sys.stderr.write(res.stderr)
+    lines = res.stdout.splitlines()
+    if res.returncode != 0 or not lines or not lines[-1].startswith("{"):
+        raise AssertionError(f"phase 11 failed (exit {res.returncode})")
+    return json.loads(lines[-1])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2952,6 +3172,9 @@ def main() -> int:
     if MESH_ONLY in sys.argv:           # phase 10's own process
         print(json.dumps(phase_mesh(card)))
         return 0
+    if DRYRUN_ONLY in sys.argv:         # phase 11's own process
+        print(json.dumps(phase_dryrun(card)))
+        return 0
     t0 = time.perf_counter()
     sass = phase_build()
     rows = [phase_flash(sass), phase_rmsnorm(), phase_wkv6()]
@@ -2971,6 +3194,7 @@ def main() -> int:
     train = phase_train_process(profile)
     families = phase_families_process(profile)
     mesh = phase_mesh_process()
+    dry = phase_dryrun_process()
     for row in rows:
         row["launches"] = (rwkv if row["name"] == "wkv6" else launches)[
             row["name"]]
@@ -2979,6 +3203,7 @@ def main() -> int:
         row["launches_hymba"] = families["hymba"][row["name"]]
         row["launches_internvl"] = families["internvl"][row["name"]]
         row["launches_mesh"] = mesh[row["name"]]
+        row["launches_dryrun_step"] = dry[row["name"]]
         if row["name"] == "wkv6":
             row["launches_decode"] = rwkv["wkv6_t1"]
             row["launches_prefill"] = rwkv["wkv6"] - rwkv["wkv6_t1"]

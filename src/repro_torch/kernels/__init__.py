@@ -23,6 +23,20 @@ def on_card(x: torch.Tensor) -> bool:
     return x.device.type != "cpu"
 
 
+def direct_launch(*tensors) -> bool:
+    """Whether a launch may skip its operator (``torch.library``'s
+    dispatch costs 20 to 45 us of host time a call on the card, PERF.md
+    §6): plain tensors, and no dispatch mode active, so that nothing
+    fakes, traces or counts the call.  Otherwise the call goes through the
+    operator, whose fake gives a fake tensor its outputs and whose
+    dispatch a counter sees; both run the same launch."""
+    return torch._C._len_torch_dispatch_stack() == 0 and all(
+        type(t) in _PLAIN for t in tensors)
+
+
+_PLAIN = (torch.Tensor, torch.nn.Parameter)
+
+
 def is_dtensor(x) -> bool:
     """Whether ``x`` is a ``DTensor`` (without importing the distributed
     package where nothing has made one)."""

@@ -7,7 +7,13 @@ scheduler that is the lane's stream: bfloat16 to the tensor-core kernel,
 which loads q, k and v with TMA and so needs 16-byte-aligned bases and
 (B, S, H) strides, float32 to the SIMT kernel.  A CPU tensor goes to the plain
 PyTorch version (``ref.attention_ref``).  There is no other path: a CUDA
-input the kernel does not take raises.
+input the kernel does not take raises.  The launch is the operator
+``repro_torch::flash_attention_fwd`` (``torch.library.custom_op``), whose
+fake gives the output's shape: a fake CUDA tensor (the dry run's,
+``launch.dryrun``) passes through it and launches nothing, and
+``launch.hlostats`` counts it as one kernel by ``cost``; an eager call on
+plain tensors with no dispatch mode active launches directly
+(``kernels.direct_launch``).
 
 ``DTensor`` inputs run through ``local_map`` with the batch or the heads
 sharded and S and hd whole; heads stay sharded only where the KV heads
@@ -19,9 +25,10 @@ from __future__ import annotations
 import ctypes
 import threading
 
+import numpy as np
 import torch
 
-from .. import is_dtensor, on_card, on_shards, refuse_grad
+from .. import direct_launch, is_dtensor, on_card, on_shards, refuse_grad
 from ..build import load
 from .ref import attention_ref
 
@@ -70,14 +77,20 @@ def _check(q, k, v) -> None:
         raise ValueError("flash_attention: q, k, v lie on different devices")
     if min(q.stride(3), k.stride(3), v.stride(3)) != 1:
         raise ValueError("flash_attention: the head dim must be contiguous")
-    if q.dtype == torch.bfloat16 and q.device.type == "cuda":
-        for name, x in (("q", q), ("k", k), ("v", v)):
-            if x.data_ptr() % 16 or any(
-                    (st * x.element_size()) % 16 for st in _strides(x)):
-                raise ValueError(
-                    f"flash_attention: bf16 {name} needs a 16-byte-aligned "
-                    f"base and (B, S, H) strides, got strides "
-                    f"{tuple(x.stride())} (the kernel loads it with TMA)")
+
+
+def _check_tma(q, k, v) -> None:
+    """bf16 operands are loaded with TMA: 16-byte-aligned bases and (B, S,
+    H) strides (a real tensor's pointers; run in the launch)."""
+    if q.dtype != torch.bfloat16:
+        return
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % 16 or any(
+                (st * x.element_size()) % 16 for st in _strides(x)):
+            raise ValueError(
+                f"flash_attention: bf16 {name} needs a 16-byte-aligned "
+                f"base and (B, S, H) strides, got strides "
+                f"{tuple(x.stride())} (the kernel loads it with TMA)")
 
 
 def _strides(x):
@@ -90,12 +103,22 @@ def _strides(x):
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          softcap: float = 0.0) -> torch.Tensor:
-    """Launch the Hopper kernel on CUDA tensors (no CPU path)."""
-    global launches
+    """The Hopper kernel on CUDA tensors (no CPU path), through the
+    ``repro_torch::flash_attention_fwd`` operator: a fake CUDA tensor gets
+    the output's shape and launches nothing."""
     _check(q, k, v)
     if q.device.type != "cuda":
         raise ValueError("flash_attention_cuda: tensors must lie on a CUDA "
                          "device")
+    launch = _launch if direct_launch(q, k, v) else flash_attention_fwd
+    return launch(q, k, v, bool(causal), int(window), float(softcap))
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: int, softcap: float) -> torch.Tensor:
+    """One launch on checked (B, S, H, hd) operands."""
+    global launches
+    _check_tma(q, k, v)
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
@@ -106,14 +129,43 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             _DTYPE_CODES[q.dtype], B, H, Hkv, Sq, Sk, hd,
             *_strides(q), *_strides(k), *_strides(v), *_strides(o),
-            float(hd ** -0.5), int(bool(causal)), int(window),
-            float(softcap), stream)
+            float(hd ** -0.5), int(causal), window, softcap, stream)
     if rc != 0:
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.flash_attention_error_string(rc).decode())
     with _count_lock:
         launches += 1
     return o
+
+
+flash_attention_fwd = torch.library.custom_op(
+    "repro_torch::flash_attention_fwd", _launch, mutates_args=(),
+    device_types="cuda")
+
+
+@flash_attention_fwd.register_fake
+def _(q, k, v, causal, window, softcap):
+    return q.new_empty(q.shape)
+
+
+def visible_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the kernel's mask lets through: key j of query
+    i where j <= i (causal) and i - j < window (a window)."""
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(Sq,
+                                                                  np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def cost(q, k, v, causal, window, softcap, o) -> tuple:
+    """(flops, bytes) of one launch, for ``launch.hlostats``: the two
+    products of each visible pair, 4·hd a head, and q, k, v and the output
+    moved once."""
+    B, Sq, H, hd = q.shape
+    flops = 4 * B * H * hd * visible_pairs(Sq, k.shape[1], causal, window)
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, o))
+    return flops, nbytes
 
 
 def _flash_sharded(q, k, v, causal: bool, window: int, softcap: float):

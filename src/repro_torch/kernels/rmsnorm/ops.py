@@ -4,7 +4,13 @@
 A CUDA tensor goes to the hand-written Hopper kernel (``csrc/rmsnorm.cu``),
 launched on the current stream.  A CPU tensor goes to the plain PyTorch
 version (``ref.rmsnorm_ref``).  There is no other path: a CUDA input the
-kernel does not take raises.
+kernel does not take raises.  The launch is the operator
+``repro_torch::rmsnorm_fwd`` (``torch.library.custom_op``), whose fake
+gives the output's shape: a fake CUDA tensor (the dry run's,
+``launch.dryrun``) passes through it and launches nothing, and
+``launch.hlostats`` counts it as one kernel by ``cost``; an eager call on
+plain tensors with no dispatch mode active launches directly
+(``kernels.direct_launch``).
 
 The scale may be float32 or bfloat16: the kernel reads float32, so a bf16
 scale is cast first (d elements), as ``repro.models.layers.apply_norm``
@@ -28,7 +34,8 @@ import threading
 
 import torch
 
-from .. import as_dtensor, is_dtensor, kernel_placements, on_card
+from .. import (as_dtensor, direct_launch, is_dtensor, kernel_placements,
+               on_card)
 from ..build import load
 from .ref import rmsnorm_ref
 
@@ -57,8 +64,9 @@ def _library():
 
 
 def rmsnorm_cuda(x, scale, eps: float = 1e-6) -> torch.Tensor:
-    """Launch the Hopper kernel on CUDA tensors (no CPU path)."""
-    global launches
+    """The Hopper kernel on CUDA tensors (no CPU path), through the
+    ``repro_torch::rmsnorm_fwd`` operator: a fake CUDA tensor gets the
+    output's shape and launches nothing."""
     if x.device.type != "cuda" or scale.device != x.device:
         raise ValueError("rmsnorm_cuda: x and scale must lie on one CUDA "
                          "device")
@@ -73,25 +81,51 @@ def rmsnorm_cuda(x, scale, eps: float = 1e-6) -> torch.Tensor:
     x2 = x.reshape(-1, d)
     if x2.stride(1) != 1:
         raise ValueError("rmsnorm: the last dim must be contiguous")
+    if x2.shape[0] == 0 or d == 0:
+        return torch.empty_like(x)
     # The kernel reads a float32 scale; a bf16 one (bf16 weights) is cast
     # first, d elements, as the reference's apply_norm casts it.
     scale = scale.float().contiguous()
-    N = x2.shape[0]
-    y = torch.empty((N, d), dtype=x.dtype, device=x.device)
-    if N == 0 or d == 0:
-        return y.reshape(x.shape)
+    launch = _launch if direct_launch(x2, scale) else rmsnorm_fwd
+    return launch(x2, scale, float(eps)).reshape(x.shape)
+
+
+def _launch(x2: torch.Tensor, scale: torch.Tensor,
+            eps: float) -> torch.Tensor:
+    """One launch on (N, d) rows with a unit stride and a float32 scale."""
+    global launches
+    N, d = x2.shape
+    y = torch.empty((N, d), dtype=x2.dtype, device=x2.device)
     lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x2.device):
+        stream = torch.cuda.current_stream(x2.device).cuda_stream
         rc = lib.rmsnorm_fwd(x2.data_ptr(), y.data_ptr(), scale.data_ptr(),
-                             _DTYPE_CODES[x.dtype], N, d, x2.stride(0),
+                             _DTYPE_CODES[x2.dtype], N, d, x2.stride(0),
                              y.stride(0), float(eps), stream)
     if rc != 0:
         raise RuntimeError("rmsnorm kernel launch failed: "
                            + lib.rmsnorm_error_string(rc).decode())
     with _count_lock:
         launches += 1
-    return y.reshape(x.shape)
+    return y
+
+
+rmsnorm_fwd = torch.library.custom_op("repro_torch::rmsnorm_fwd", _launch,
+                                      mutates_args=(), device_types="cuda")
+
+
+@rmsnorm_fwd.register_fake
+def _(x2, scale, eps):
+    return x2.new_empty(x2.shape)
+
+
+def cost(x2, scale, eps, y) -> tuple:
+    """(flops, bytes) of one launch, for ``launch.hlostats``: about four
+    float32 operations an element, and each operand read or written once
+    (the kernel is bound by its bytes)."""
+    nbytes = (x2.numel() + y.numel()) * x2.element_size() \
+        + scale.numel() * scale.element_size()
+    return 4 * x2.numel(), nbytes
 
 
 class RMSNormFn(torch.autograd.Function):

@@ -8,7 +8,13 @@ ring of chunk buffers filled by asynchronous copies (``cp.async``) when
 T > 1 and every input is 16-byte aligned, and by plain loads otherwise
 (decode's T = 1, unaligned views); ``uses_ring`` tells which.  A CPU
 tensor goes to the plain PyTorch version (``ref.wkv6_ref``).  There is no
-other path: a CUDA input the kernel does not take raises.
+other path: a CUDA input the kernel does not take raises.  The launch is the operator
+``repro_torch::wkv6_fwd`` (``torch.library.custom_op``), whose fake gives
+the outputs' shapes: a fake CUDA tensor (the dry run's,
+``launch.dryrun``) passes through it and launches nothing, and
+``launch.hlostats`` counts it as one kernel by ``cost``, never as the
+plain version's per-step loop; an eager call on plain tensors with no
+dispatch mode active launches directly (``kernels.direct_launch``).
 
 ``DTensor`` inputs run through ``local_map`` with the batch or the heads
 sharded (u and the state follow the heads, the state the batch too) and
@@ -21,8 +27,8 @@ import threading
 
 import torch
 
-from .. import (as_dtensor, is_dtensor, kernel_placements, on_card,
-               refuse_grad)
+from .. import (as_dtensor, direct_launch, is_dtensor, kernel_placements,
+               on_card, refuse_grad)
 from ..build import load
 from .ref import wkv6_ref
 
@@ -80,10 +86,9 @@ def wkv6_plain(r, k, v, w, u, s0):
     return y, sT.reshape(B, H, hd, hd)
 
 
-def _kernel_args(r, k, v, w, u, s0):
-    """Checks CUDA inputs and returns (y, sT, the C function's arguments
-    but the stream, the contiguous u and s0 those arguments point into,
-    to be kept alive until the launch)."""
+def _check_cuda(r, k, v, w, u, s0) -> None:
+    """What the kernel takes, from shapes, types and devices alone (a fake
+    tensor's too)."""
     _check(r, k, v, w, u, s0)
     if r.device.type != "cuda" or any(t.device != r.device
                                       for t in (k, v, w, u, s0)):
@@ -104,6 +109,13 @@ def _kernel_args(r, k, v, w, u, s0):
         raise ValueError("wkv6: the head dim must be contiguous")
     if B * H == 0:
         raise ValueError("wkv6: empty batch or head count")
+
+
+def _kernel_args(r, k, v, w, u, s0):
+    """The outputs (y, sT), the C function's arguments but the stream, and
+    the contiguous u and s0 those arguments point into, to be kept alive
+    until the launch; for checked CUDA inputs."""
+    B, T, H, hd = r.shape
     u = u.float().contiguous()
     s0 = s0.contiguous()
     y = torch.empty((B, T, H, hd), dtype=r.dtype, device=r.device)
@@ -123,15 +135,28 @@ def uses_ring(r, k, v, w, u, s0) -> bool:
     """Whether ``wkv6_cuda`` on these CUDA inputs fills the kernel's ring
     of chunk buffers by asynchronous copies (T > 1, every input 16-byte
     aligned) or by plain loads.  Launches nothing."""
+    _check_cuda(r, k, v, w, u, s0)
     _, _, args, _ = _kernel_args(r, k, v, w, u, s0)
     return bool(_library().wkv6_uses_ring(*args, None))
 
 
 def wkv6_cuda(r, k, v, w, u, s0):
-    """Launch the Hopper kernel on CUDA tensors (no CPU path)."""
+    """The Hopper kernel on CUDA tensors (no CPU path), through the
+    ``repro_torch::wkv6_fwd`` operator: a fake CUDA tensor gets the
+    outputs' shapes and launches nothing."""
+    _check_cuda(r, k, v, w, u, s0)
+    B, T, H, hd = r.shape
+    launch = _launch if direct_launch(r, k, v, w, u, s0) else wkv6_fwd
+    y, sT = launch(r, k, v, w, u, s0)
+    return y.reshape(B, T, H * hd), sT
+
+
+def _launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            w: torch.Tensor, u: torch.Tensor,
+            s0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch on checked inputs: y (B, T, H, hd), sT (B, H, hd, hd)."""
     global launches, launches_t1
     y, sT, args, _alive = _kernel_args(r, k, v, w, u, s0)
-    B, T, H, hd = r.shape
     lib = _library()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
@@ -141,8 +166,27 @@ def wkv6_cuda(r, k, v, w, u, s0):
                            + lib.wkv6_error_string(rc).decode())
     with _count_lock:
         launches += 1
-        launches_t1 += T == 1
-    return y.reshape(B, T, H * hd), sT
+        launches_t1 += r.shape[1] == 1
+    return y, sT
+
+
+wkv6_fwd = torch.library.custom_op("repro_torch::wkv6_fwd", _launch,
+                                   mutates_args=(), device_types="cuda")
+
+
+@wkv6_fwd.register_fake
+def _(r, k, v, w, u, s0):
+    return r.new_empty(r.shape), s0.new_empty(s0.shape)
+
+
+def cost(r, k, v, w, u, s0, out) -> tuple:
+    """(flops, bytes) of one launch, for ``launch.hlostats``: 5·hd² float32
+    operations a token and head (r^T S, then w S + k v^T), and each
+    operand read or written once."""
+    B, T, H, hd = r.shape
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (r, k, v, w, u, s0, *out))
+    return 5 * hd * hd * B * T * H, nbytes
 
 
 def _wkv6_sharded(r, k, v, w, u, s0):

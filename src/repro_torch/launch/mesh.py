@@ -8,10 +8,15 @@ on ``cpu`` otherwise (gloo, or the fake backend of a shape-only world).
 Building a mesh is a collective: every rank of the world calls it, also a
 rank that the mesh leaves out.
 
-The constants are one NVIDIA H100 SXM5's, for the dry run's roofline (no
-code reads them yet).  An axis of 16 ranks spans two 8-GPU NVLink domains
-(an HGX H100 board holds eight), so part of its traffic crosses the
-inter-node fabric at ``INTERNODE_BW``, not ``NVLINK_BW``.
+The constants are one NVIDIA H100 SXM5's, for the dry run's roofline
+(``launch.dryrun.roofline_terms``): compute seconds are flops over
+``PEAK_BF16_FLOPS``, memory seconds bytes over ``HBM_BW``, and
+``fits_hbm`` holds the peak against ``HBM_BYTES``.  The collective term
+divides each group's wire bytes by the slowest link the group spans: a
+group within one NVLink domain of ``NODE_RANKS`` consecutive ranks (an HGX
+H100 board holds eight) runs at ``NVLINK_BW``, any other at
+``INTERNODE_BW``.  An axis of 16 ranks spans two domains, so on the
+production meshes every axis crosses the inter-node fabric.
 """
 from __future__ import annotations
 
@@ -29,6 +34,8 @@ NVLINK_BW = 450e9
 # NVIDIA DGX H100 system documentation: one ConnectX-7 400 Gb/s
 # InfiniBand port per GPU, per direction.
 INTERNODE_BW = 50e9
+# GPUs an NVLink domain joins: one HGX H100 board.
+NODE_RANKS = 8
 
 
 def mesh_device_type() -> str:
@@ -36,7 +43,7 @@ def mesh_device_type() -> str:
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 
-def _mesh(shape, names):
+def _mesh(shape, names, device_type=None):
     from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
     if not dist.is_initialized():
         raise RuntimeError("a mesh needs a process group: call "
@@ -46,23 +53,26 @@ def _mesh(shape, names):
     for s in shape:
         n *= s
     world = dist.get_world_size()
+    device_type = device_type or mesh_device_type()
     if n == world:
-        return init_device_mesh(mesh_device_type(), tuple(shape),
+        return init_device_mesh(device_type, tuple(shape),
                                 mesh_dim_names=tuple(names))
     if n > world:
         raise ValueError(f"a {tuple(shape)} mesh needs {n} ranks, the world "
                          f"has {world}")
     # a mesh over the first n ranks (the elastic path after a device loss)
     ranks = torch.arange(n).reshape(tuple(shape))
-    return DeviceMesh(mesh_device_type(), ranks, mesh_dim_names=tuple(names))
+    return DeviceMesh(device_type, ranks, mesh_dim_names=tuple(names))
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False, device_type=None):
     """(16, 16) ``("data", "model")``, or (2, 16, 16) ``("pod", "data",
-    "model")`` with ``multi_pod``: a world of 256 or 512 ranks."""
+    "model")`` with ``multi_pod``: a world of 256 or 512 ranks.
+    ``device_type`` overrides the group's (the dry run's fake world holds
+    ``cuda`` tensors)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _mesh(shape, axes)
+    return _mesh(shape, axes, device_type)
 
 
 def make_mesh_for(n_devices: int, model_parallel: int = 16):
@@ -80,7 +90,7 @@ def mesh_axes(mesh) -> dict:
     same (a shape-only mesh, for the spec functions)."""
     if isinstance(mesh, dict):
         return dict(mesh)
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
 def init_world(device) -> bool:

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._subclasses.fake_tensor import FakeTensor
 
 from ..kernels import is_dtensor, kernel_placements
 from ..kernels.rmsnorm.ops import rmsnorm
@@ -79,6 +80,8 @@ def _rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
         host = 1.0 / (theta ** (np.arange(0, head_dim // 2, dtype=np.float32)
                                 * 2.0 / head_dim))
         freqs = torch.from_numpy(np.asarray(host, np.float32)).to(device)
+        if isinstance(freqs, FakeTensor):   # a dry run's: never kept
+            return freqs
         if freqs.is_cuda:   # complete before another lane's stream reads it
             torch.cuda.current_stream(device).synchronize()
         _FREQS[key] = freqs

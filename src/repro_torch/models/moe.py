@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels import as_dtensor, is_dtensor, kernel_placements
 from ..sharding.context import shard_activations, use_weight
 from .layers import MLP, normal_init
 
@@ -62,6 +63,24 @@ def capacity(cfg, S: int) -> int:
                        / e.n_experts)), S)
 
 
+def _router_logits(x, w):
+    """(B, S, d) x (d, E) -> (B, S, E) in f32; a ``DTensor`` on each rank's
+    tokens with the router whole (its product's backward then never
+    reshapes a sharded token axis)."""
+    def logits(x, w):
+        return torch.einsum("bsd,de->bse", x.float(), w)
+    if not is_dtensor(x):
+        return logits(x, w)
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    pl = kernel_placements(x, (0, 1))
+    rep = (Replicate(),) * len(pl)
+    dw = tuple(Partial() if p.is_shard() else Replicate() for p in pl)
+    return local_map(logits, out_placements=list(pl), in_placements=(pl, rep),
+                     in_grad_placements=(pl, dw), device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x, as_dtensor(w, x.device_mesh))
+
+
 def route(cfg, router, x) -> Dict[str, torch.Tensor]:
     """Softmax router in f32, top-k, renormalised gates, and each routed
     token's slot in its expert's buffer.
@@ -72,8 +91,7 @@ def route(cfg, router, x) -> Dict[str, torch.Tensor]:
     position``, or the trash slot ``E * cap`` where dropped)."""
     e = cfg.moe
     B, S, _ = x.shape
-    logits = torch.einsum("bsd,de->bse", x.float(),
-                          use_weight(router, (None, None)))
+    logits = _router_logits(x, use_weight(router, (None, None)))
     probs = torch.softmax(logits, dim=-1)
     gates, expert_ids = torch.topk(probs, e.top_k, dim=-1)     # (B, S, k)
     gates = gates / (gates.sum(-1, keepdim=True) + 1e-9)
@@ -127,6 +145,18 @@ def _expert_ffn(cfg, p: MoE, x):
                         use_weight(p.w_out.to(x.dtype), *_EP_OUT))
 
 
+def _zeros_as(x, shape):
+    """Zeros of ``shape`` in ``x``'s type and place; for a ``DTensor`` x,
+    made shard by shard in its batch layout (``new_zeros`` on a
+    ``DTensor`` makes the whole global tensor on every rank: 60 GiB for
+    dbrx's expert buffer at 32k tokens)."""
+    if not is_dtensor(x):
+        return x.new_zeros(shape)
+    from torch.distributed.tensor import zeros
+    return zeros(shape, dtype=x.dtype, device_mesh=x.device_mesh,
+                 placements=kernel_placements(x, (0,)))
+
+
 def apply_moe(cfg, p: MoE, x) -> Tuple[torch.Tensor, dict]:
     """x: (B, S, d) -> (out, aux).  ``aux`` holds the reference's
     load-balance and router z losses (``moe_aux``, ``moe_z``, f32 scalars)
@@ -143,7 +173,7 @@ def apply_moe(cfg, p: MoE, x) -> Tuple[torch.Tensor, dict]:
     xrep = shard_activations(
         x.repeat_interleave(e.top_k, dim=1))                   # (B, S*k, d)
     idx = shard_activations(idx)
-    buf = shard_activations(x.new_zeros((B, e.n_experts * cap + 1, d)))
+    buf = shard_activations(_zeros_as(x, (B, e.n_experts * cap + 1, d)))
     buf = shard_activations(buf.scatter(1, idx, xrep))
     expert_in = buf[:, :-1].reshape(B, e.n_experts, cap, d)
 
@@ -153,7 +183,7 @@ def apply_moe(cfg, p: MoE, x) -> Tuple[torch.Tensor, dict]:
     # combine with the gates.
     flat_out = shard_activations(torch.cat(
         [expert_out.reshape(B, e.n_experts * cap, d),
-         x.new_zeros((B, 1, d))], dim=1))
+         _zeros_as(x, (B, 1, d))], dim=1))
     routed = shard_activations(flat_out.gather(1, idx))
     gates = (r["gates"].reshape(B, Tk) * keep).to(x.dtype)
     combined = (routed * gates[..., None]).reshape(B, S, e.top_k, d).sum(2)

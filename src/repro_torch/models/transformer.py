@@ -50,8 +50,9 @@ from . import attention as A
 from . import mamba as M
 from . import moe as MOE
 from . import rwkv as R
-from ..kernels import is_dtensor, kernel_placements
-from ..sharding.context import shard_activations, use_weight
+from ..kernels import as_dtensor, is_dtensor, kernel_placements
+from ..sharding.context import (recompute_context, shard_activations,
+                                to_stream, use_weight)
 from .config import ArchConfig
 from .layers import MLP, Norm, normal_init
 
@@ -208,15 +209,15 @@ def _apply_rwkv_block(cfg, blk: Block, x, state, seq: bool):
 
 
 def _ffn_part(cfg, blk: Block, x, aux: Optional[dict]):
-    h = blk.ln2(x)
+    h = shard_activations(blk.ln2(x))
     if not hasattr(blk, "moe"):
-        return x + blk.ffn(h)
+        return x + to_stream(blk.ffn(h), x)
     y, a = MOE.apply_moe(cfg, blk.moe, h)
     if aux is not None:
         aux["moe_aux"] = aux.get("moe_aux", 0.0) + a["moe_aux"]
         aux["moe_z"] = aux.get("moe_z", 0.0) + a["moe_z"]
         aux.setdefault("moe_kept", []).append(a["moe_kept"])
-    return x + y
+    return x + to_stream(y, x)
 
 
 def apply_block_seq(cfg, blk: Block, x, positions, *, cache=None,
@@ -229,7 +230,7 @@ def apply_block_seq(cfg, blk: Block, x, positions, *, cache=None,
     ``aux`` where one is given."""
     if blk.kind == "rwkv":
         return _apply_rwkv_block(cfg, blk, x, cache, seq=True)
-    h = blk.ln1(x)
+    h = shard_activations(blk.ln1(x))
     y, (k, v) = A.attend_full(cfg, blk.attn, h, positions, window=blk.window,
                               use_flash=use_flash,
                               bidirectional=bidirectional)
@@ -238,12 +239,12 @@ def apply_block_seq(cfg, blk: Block, x, positions, *, cache=None,
                  else M.init_mamba_state(cfg, x.shape[0], x.device))
         ym, mstate = M.apply_mamba_seq(cfg, blk.mamba, h, state)
         y = 0.5 * (y + ym)
-    x = x + y
+    x = x + to_stream(y, x)
     cross = hasattr(blk, "cross") and enc_out is not None
     if cross:
-        yc, (ck, cv) = A.attend_cross(cfg, blk.cross, blk.ln_cross(x),
-                                      enc_out)
-        x = x + yc
+        yc, (ck, cv) = A.attend_cross(
+            cfg, blk.cross, shard_activations(blk.ln_cross(x)), enc_out)
+        x = x + to_stream(yc, x)
     x = _ffn_part(cfg, blk, x, aux)
     if cache is not None:
         S = k.shape[1]
@@ -386,7 +387,10 @@ def forward_train(cfg: ArchConfig, params: LM, batch, use_flash: bool = False,
     activation memory, as the reference checkpoints each scanned group
     (its encoder is not checkpointed, nor is this one).  ``seq_shard``
     shards the residual stream's sequence dim over "model" between blocks
-    (Megatron-style sequence parallelism; a no-op outside a mesh)."""
+    (Megatron-style sequence parallelism; a no-op outside a mesh): each
+    norm's output, which feeds the column-parallel products, is gathered
+    along the sequence first (``shard_activations``), as Megatron's
+    sequence parallelism gathers it."""
     tokens = batch["tokens"]
     enc_out, patches = _frontends(cfg, params, batch)
     x = _embed(cfg, params, tokens, patches)
@@ -399,7 +403,8 @@ def forward_train(cfg: ArchConfig, params: LM, batch, use_flash: bool = False,
         if remat:
             x, a, z = checkpoint(_train_block, cfg, blk, x, positions,
                                  use_flash, enc_out, use_reentrant=False,
-                                 preserve_rng_state=False)
+                                 preserve_rng_state=False,
+                                 context_fn=recompute_context)
         else:
             x, a, z = _train_block(cfg, blk, x, positions, use_flash,
                                    enc_out)
@@ -407,8 +412,22 @@ def forward_train(cfg: ArchConfig, params: LM, batch, use_flash: bool = False,
         moe_z = moe_z + z
         if seq_shard:
             x = shard_activations(x, seq_axis=seq_ax)
-    x = params.final_norm(x)
+    x = shard_activations(params.final_norm(x))
     return _logits(cfg, params, x), {"moe_aux": moe_aux, "moe_z": moe_z}
+
+
+def _gold_on_shards(logits, labels):
+    """The gold logits of a ``DTensor`` (B, S, V) on each rank's rows: the
+    gather reads whole vocab rows (a sharded vocab is gathered first), and
+    runs on the rank's shard, so neither it nor its backward's scatter
+    makes a (B, S, V) tensor on every rank."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = logits.device_mesh
+    pl = kernel_placements(logits, (0, 1))
+    fn = local_map(lambda lg, lb: lg.gather(-1, lb.long()[..., None])[..., 0],
+                   out_placements=list(pl), in_placements=(pl, pl),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(logits, as_dtensor(labels, mesh))
 
 
 def cross_entropy_loss(logits, labels, z_loss: float = 1e-4):
@@ -418,10 +437,9 @@ def cross_entropy_loss(logits, labels, z_loss: float = 1e-4):
     one-hot reduction for its sharded vocab axis: the values are the same."""
     lse = torch.logsumexp(logits, dim=-1)
     if is_dtensor(logits):
-        # the gather reads whole vocab rows: gather a sharded vocab first
-        logits = logits.redistribute(
-            placements=kernel_placements(logits, (0, 1)))
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+        gold = _gold_on_shards(logits, labels)
+    else:
+        gold = logits.gather(-1, labels.long()[..., None])[..., 0]
     loss = torch.mean(lse - gold)
     if z_loss:
         loss = loss + z_loss * torch.mean(lse ** 2)

@@ -16,6 +16,14 @@ so a block's norm scale is a matrix there; a module says so through
 ``reference_ndim(name)`` (``models.transformer.LM`` does), and the optimizer
 then treats the leaf as the reference does.  Quantizing along the last axis
 only makes a stacked leaf's codes the stack of its layers' codes.
+
+On a mesh (``DTensor`` parameters) the q8 codes (..., nb, 128) and scales
+(..., nb) are ``DTensor``s laid out by ``sharding.rules.q8_specs`` (the
+reference's ``opt_leaf_sharding``): each rank dequantizes, updates and
+requantizes its own blocks, and every block lies inside one shard.  Where
+the blocks' layout differs from the parameter's (fewer ranks on the block
+axis, or blocks that pad the last axis) the values are redistributed to
+the parameter's layout for the update and back.
 """
 from __future__ import annotations
 
@@ -27,9 +35,6 @@ import torch
 import torch.nn.functional as F
 
 BLOCK = 128
-Q8_ON_A_MESH = ("q8 AdamW moments on a mesh of more than one rank: their "
-                "block sharding comes with the dry-run slice "
-                "(launch/specs.py); train with f32 moments")
 
 
 # ----------------------------------------------------------------------
@@ -119,14 +124,13 @@ class AdamW:
 
     # -- state ----------------------------------------------------------
     def _zeros_like(self, p: torch.Tensor, ndim: int) -> Moment:
-        # zeros_like keeps a DTensor parameter's placements
-        zeros = torch.zeros_like(p, dtype=torch.float32)
         if self.quantized and ndim >= 2:
-            mesh = getattr(p, "device_mesh", None)
-            if mesh is not None and mesh.size() > 1:
-                raise NotImplementedError(Q8_ON_A_MESH)
-            return Q8State(*quantize_q8(zeros))
-        return zeros
+            if hasattr(p, "device_mesh"):
+                return _q8_zeros_on_shards(p)
+            return Q8State(*quantize_q8(torch.zeros_like(
+                p, dtype=torch.float32)))
+        # zeros_like keeps a DTensor parameter's placements
+        return torch.zeros_like(p, dtype=torch.float32)
 
     def init(self, params) -> AdamWState:
         leaves = named_leaves(params)
@@ -164,8 +168,8 @@ class AdamW:
             g = g_of[n].float() * scale
             m, v = state.m[n], state.v[n]
             is_q = isinstance(m, Q8State)
-            mf = dequantize_q8(m.codes, m.scales, p.shape) if is_q else m
-            vf = dequantize_q8(v.codes, v.scales, p.shape) if is_q else v
+            mf = _dequantize(m, p) if is_q else m
+            vf = _dequantize(v, p) if is_q else v
             mf.mul_(b1).add_(g, alpha=1 - b1)
             vf.mul_(b2).add_(g.square_(), alpha=1 - b2)
             del g
@@ -179,7 +183,89 @@ class AdamW:
                 p.copy_((p.float() + delta.mul_(-lr)).to(p.dtype))
             del delta
             if is_q:
-                state.m[n] = Q8State(*quantize_q8(mf))
-                state.v[n] = Q8State(*quantize_q8(vf))
+                state.m[n] = _quantize(mf, m)
+                state.v[n] = _quantize(vf, v)
         state.step = step
         return {"grad_norm": gnorm, "lr": lr}
+
+
+# ----------------------------------------------------------------------
+# q8 moments of DTensor parameters: the blocks laid out by
+# ``sharding.rules.q8_specs``, each rank's blocks dequantized, updated and
+# requantized on its own shard
+# ----------------------------------------------------------------------
+def _q8_zeros_on_shards(p) -> Q8State:
+    """The q8 zeros of DTensor ``p``: codes 0 and scales 1e-12 (what
+    ``quantize_q8`` gives for zeros), made on each rank's shard."""
+    from torch.distributed.tensor import zeros
+    from ..sharding.rules import NamedSharding, q8_specs, spec_of
+    mesh = p.device_mesh
+    nb = -(-p.shape[-1] // BLOCK)
+    lead = tuple(p.shape[:-1])
+    cs, ss = q8_specs(spec_of(p.placements, mesh, p.dim()),
+                      lead + (nb, BLOCK), lead + (nb,), mesh)
+    codes = zeros(lead + (nb, BLOCK), dtype=torch.int8, device_mesh=mesh,
+                  placements=NamedSharding(mesh, cs).placements)
+    scales = zeros(lead + (nb,), dtype=torch.float32, device_mesh=mesh,
+                   placements=NamedSharding(mesh, ss).placements)
+    return Q8State(codes, scales.add_(1e-12))
+
+
+def _element_placements(q: Q8State, padded: bool) -> tuple:
+    """The placements of a q8 moment's values (..., nb * BLOCK): the block
+    axis's shards on the last axis (replicated there when the blocks pad
+    the parameter's last axis), the leading axes' as the codes'."""
+    from torch.distributed.tensor import Replicate, Shard
+    nbdim = q.codes.dim() - 2
+    return tuple((Replicate() if padded else Shard(nbdim))
+                 if pl.is_shard(nbdim) else pl for pl in q.codes.placements)
+
+
+def _dequantize(q: Q8State, p) -> torch.Tensor:
+    """A q8 moment's values in ``p``'s shape (and, for a DTensor ``p``, its
+    layout)."""
+    if not hasattr(p, "device_mesh"):
+        return dequantize_q8(q.codes, q.scales, p.shape)
+    from torch.distributed.tensor import DTensor
+    mesh = p.device_mesh
+    last = p.shape[-1]
+    padded = q.codes.shape[-2] * BLOCK != last
+    if padded:       # whole block rows on each rank, then the padding cut
+        codes = q.codes.redistribute(placements=_element_placements(
+            q, True)).to_local()
+        scales = q.scales.redistribute(placements=_element_placements(
+            q, True)).to_local()
+        local = (codes.float() * scales[..., None]).reshape(
+            *codes.shape[:-2], -1)[..., :last]
+    else:
+        codes, scales = q.codes.to_local(), q.scales.to_local()
+        local = (codes.float() * scales[..., None]).reshape(
+            *codes.shape[:-2], -1)
+    vals = DTensor.from_local(local, mesh, _element_placements(q, padded),
+                              run_check=False)
+    return vals.redistribute(placements=p.placements)
+
+
+def _quantize(x: torch.Tensor, like: Q8State) -> Q8State:
+    """``x`` quantized as ``quantize_q8`` does, in ``like``'s layout where
+    ``like`` is a DTensor moment."""
+    if not hasattr(like.codes, "device_mesh"):
+        return Q8State(*quantize_q8(x))
+    from torch.distributed.tensor import DTensor
+    mesh = like.codes.device_mesh
+    padded = like.codes.shape[-2] * BLOCK != x.shape[-1]
+    local = x.redistribute(placements=_element_placements(
+        like, padded)).to_local()
+    codes, scales = quantize_q8(local)
+    if padded:       # every rank holds all blocks: keep its own
+        rep = _element_placements(like, True)
+        return Q8State(
+            DTensor.from_local(codes, mesh, rep, run_check=False)
+            .redistribute(placements=like.codes.placements),
+            DTensor.from_local(scales, mesh, rep, run_check=False)
+            .redistribute(placements=like.scales.placements))
+    return Q8State(
+        DTensor.from_local(codes, mesh, like.codes.placements,
+                           run_check=False),
+        DTensor.from_local(scales, mesh, like.scales.placements,
+                           run_check=False))

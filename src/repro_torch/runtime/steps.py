@@ -22,6 +22,7 @@ import torch
 from ..models import (LM, cross_entropy_loss, forward_decode, forward_prefill,
                       forward_train)
 from ..models.config import ArchConfig
+from ..kernels import is_dtensor, kernel_placements
 from ..models.convert import whole
 from ..optim import AdamW, AdamWState
 from ..sharding.context import constrain_like_params
@@ -105,6 +106,19 @@ def make_decode_step(cfg: ArchConfig):
         caches or recurrent states)."""
         logits, cache = forward_decode(cfg, params, tokens, cache, pos)
         # argmax gives int64 in torch where jnp.argmax gives int32
-        next_tokens = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        next_tokens = _argmax_rows(logits)[:, None].to(torch.int32)
         return next_tokens, logits, cache
     return serve_step
+
+
+def _argmax_rows(logits):
+    """argmax over the vocab of (B, V) logits; a ``DTensor``'s on each
+    rank's rows, the vocab gathered whole first."""
+    if not is_dtensor(logits):
+        return torch.argmax(logits, dim=-1)
+    from torch.distributed.tensor.experimental import local_map
+    pl = kernel_placements(logits, (0,))
+    return local_map(lambda t: torch.argmax(t, dim=-1),
+                     out_placements=list(pl), in_placements=(pl,),
+                     device_mesh=logits.device_mesh,
+                     redistribute_inputs=True)(logits)

@@ -19,7 +19,7 @@ ones (``implicit_replication``).
 from __future__ import annotations
 
 import threading
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Optional, Sequence, Tuple
 
 from ..kernels import is_dtensor, mesh_factor
@@ -56,6 +56,17 @@ def sharding_rules(mesh):
             yield
     finally:
         _STATE.axes, _STATE.mesh = prev
+
+
+def recompute_context():
+    """``context_fn`` of a non-reentrant ``torch.utils.checkpoint``: the
+    recompute re-enters the sharding rules active when the block ran.
+    Autograd runs a CUDA tensor's backward, and so remat's recompute, on
+    its device thread, where this module's thread-local rules are not
+    set; without them no use-site constraint would apply there."""
+    mesh = _mesh()
+    return nullcontext(), (sharding_rules(mesh) if mesh is not None
+                           else nullcontext())
 
 
 def _active(x) -> bool:
@@ -100,6 +111,19 @@ def use_weight(w, *candidate_specs):
         if any(a is not None for a in p):
             return _constrain(w, p)
     return _constrain(w, (None,) * w.ndim)
+
+
+def to_stream(y, x):
+    """``y`` in the layout of the residual stream ``x`` before the two
+    are added: a block's row-parallel output (a partial sum) is reduced
+    into the stream's layout (a reduce-scatter where the stream is
+    sequence-sharded), and its backward hands the product a gradient in
+    the product's own layout, which its view of (B, S) as one axis
+    needs."""
+    if not (_active(y) and is_dtensor(x)) or any(
+            p.is_partial() for p in x.placements):
+        return y         # a partial-sum stream (decode) takes y as it is
+    return y.redistribute(x.device_mesh, x.placements)
 
 
 def shard_activations(x, *, seq_axis=None):

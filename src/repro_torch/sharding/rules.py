@@ -29,6 +29,7 @@ None.  Leaf names are matched through ``models.convert.reference_path``.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, Mapping, Sequence, Tuple
 
@@ -213,25 +214,65 @@ def cache_sharding(cache, mesh):
     return walk(cache)
 
 
+def q8_specs(base: Sequence, codes_shape, scales_shape, mesh) -> tuple:
+    """(codes spec, scales spec) of a q8 moment whose parameter has spec
+    ``base`` (``launch/specs.py``'s ``opt_leaf_sharding``): the blocks keep
+    the parameter's leading-axis sharding, and the block axis ``nb`` takes
+    the parameter's last-axis sharding where it divides ``nb``; else, down
+    a ladder (the full data-parallel tuple, then each sub-axis, largest
+    first, then unsharded), the largest ZeRO degree that does (e.g. 144
+    blocks against pod x data = 32 take data = 16).  The trailing axis of
+    128 is never sharded, so every block lies inside one shard."""
+    axes = mesh_axes(mesh)
+
+    def length(ax) -> int:       # an axis the mesh lacks counts as 1
+        group = ax if isinstance(ax, tuple) else (ax,)
+        return math.prod(axes.get(a, 1) for a in group)
+    base = tuple(base)
+    lead = base[:-1] if base else ()
+    last = base[-1] if base else None
+    nb = codes_shape[-2]
+    if isinstance(last, tuple):
+        candidates = [last] + sorted(last, key=length, reverse=True)
+    else:
+        candidates = [last]
+    pick = None
+    for c in candidates:
+        if c is not None and nb % length(c) == 0:
+            pick = c
+            break
+    return (fit_spec(lead + (pick, None), codes_shape, mesh),
+            fit_spec(lead + (pick,), scales_shape, mesh))
+
+
+def spec_of(placements, mesh, ndim: int) -> Spec:
+    """The spec whose ``placements`` on ``mesh`` are these (the inverse of
+    ``placements``; a dimension sharded over several axes names them in
+    mesh order)."""
+    names = mesh.mesh_dim_names
+    spec = []
+    for d in range(ndim):
+        on = tuple(names[i] for i, p in enumerate(placements)
+                   if p.is_shard(d))
+        spec.append(None if not on else on[0] if len(on) == 1 else on)
+    return tuple(spec)
+
+
 def state_sharding(state_tree, params_sharding):
     """Optimizer state mirrors parameter sharding: ``{"m": ..., "v": ...}``
-    each the parameters' ``{leaf name: NamedSharding}``.  The q8 moments'
-    block layout is the dry run's (``launch/specs.py`` in the reference):
-    on a mesh of more than one rank they raise here."""
-    from ..optim.adamw import Q8_ON_A_MESH, Q8State
-    for moments in (state_tree.m, state_tree.v):
-        for n, m in moments.items():
-            sh = params_sharding[n]
-            if isinstance(m, Q8State) and _mesh_size(sh.mesh) > 1:
-                raise NotImplementedError(Q8_ON_A_MESH)
-    return {"m": dict(params_sharding), "v": dict(params_sharding)}
+    each the parameters' ``{leaf name: NamedSharding}``, a q8 moment's a
+    ``Q8State`` of its codes' and scales' (``q8_specs``)."""
+    from ..optim.adamw import Q8State
 
-
-def _mesh_size(mesh) -> int:
-    n = 1
-    for s in mesh_axes(mesh).values():
-        n *= s
-    return n
+    def one(n, m):
+        sh = params_sharding[n]
+        if not isinstance(m, Q8State):
+            return sh
+        cs, ss = q8_specs(sh.spec, tuple(m.codes.shape),
+                          tuple(m.scales.shape), sh.mesh)
+        return Q8State(NamedSharding(sh.mesh, cs), NamedSharding(sh.mesh, ss))
+    return {"m": {n: one(n, m) for n, m in state_tree.m.items()},
+            "v": {n: one(n, m) for n, m in state_tree.v.items()}}
 
 
 # ----------------------------------------------------------------------

@@ -24,7 +24,8 @@ NEW_MODULES = tuple(f"repro_torch.daemon.{m}" for m in (
         "checkpoint.manager", "runtime.trainer", "launch", "launch.train",
         "models.mamba", "launch.serve", "launch.mesh", "sharding",
         "sharding.context", "sharding.rules", "optim.compress",
-        "runtime.spacesharing", "runtime.pipeline"))
+        "runtime.spacesharing", "runtime.pipeline", "launch.specs",
+        "launch.dryrun", "launch.hlostats"))
 
 
 def _port_sources():
@@ -96,9 +97,12 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         DaemonServer(os.path.join(str(tmp_path), "d.sock"))
     with pytest.raises(RuntimeError, match="cuda"):
         TaskGraphTrainer(cfg)
-    from repro_torch.launch import serve, train
+    from repro_torch.launch import dryrun, serve, train
     with pytest.raises(SystemExit, match="cuda"):
         train.main(["--reduced", "--steps", "1"])
+    with pytest.raises(SystemExit, match="cuda"):
+        dryrun.main(["--arch", "qwen3_32b", "--shape", "decode_32k",
+                     "--out", str(tmp_path)])
     with pytest.raises(SystemExit, match="cuda"):
         serve.main(["--reduced"])
     # The simulator needs no device; the CPU is there when asked for.

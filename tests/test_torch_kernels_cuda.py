@@ -251,3 +251,45 @@ def test_rmsnorm_kernel_is_deterministic_and_refuses_bad_input(card):
         rms_ops.rmsnorm(x, scale.double())
     with pytest.raises(TypeError):
         rms_ops.rmsnorm(x.half(), scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["rmsnorm", "flash_attention", "wkv6"])
+def test_operator_path_equals_direct_launch(card, kernel):
+    """Under a dispatch mode (a counter, a tracer) a wrapper launches
+    through its ``torch.library`` operator; with none active it launches
+    directly.  Both run the same kernel: equal bits and one launch each."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Seen(TorchDispatchMode):
+        ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Seen.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=card).to(dtype)
+    if kernel == "rmsnorm":
+        mod, fn = rms_ops, rms_ops.rmsnorm
+        args = (rnd(4, 7, 512), rnd(512, dtype=torch.float32))
+    elif kernel == "flash_attention":
+        mod, fn = flash_ops, flash_ops.flash_attention
+        args = (rnd(2, 64, 8, 128), rnd(2, 64, 2, 128), rnd(2, 64, 2, 128))
+    else:
+        mod, fn = wkv_ops, wkv_ops.wkv6
+        f32 = torch.float32
+        args = (rnd(2, 9, 4, 64), rnd(2, 9, 4, 64), rnd(2, 9, 4, 64),
+                torch.rand((2, 9, 4, 64), generator=g, device=card) * 0.5
+                + 0.4, rnd(4, 64, dtype=f32), rnd(2, 4, 64, 64, dtype=f32))
+    before = mod.launches
+    direct = fn(*args)
+    with Seen():
+        traced = fn(*args)
+    torch.cuda.synchronize()
+    direct = direct if isinstance(direct, tuple) else (direct,)
+    traced = traced if isinstance(traced, tuple) else (traced,)
+    assert all(torch.equal(a, b) for a, b in zip(direct, traced))
+    assert mod.launches == before + 2
+    assert f"repro_torch.{kernel}_fwd.default" in Seen.ops, Seen.ops
