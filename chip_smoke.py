@@ -7,14 +7,18 @@ Eleven phases, each of which raises on failure (nothing is caught):
 
 1. build: compiles every CUDA kernel of the port from ``src/repro_torch``
    with ``nvcc`` (one process per source, all at once) into ``build/``,
-   prints ptxas's register and spill report and counts the flash library's
+   prints ptxas's register and spill report (a spill in the WKV6 forward's
+   or backward's instantiations fails) and counts the flash library's
    tensor-core instructions (HGMMA, HMMA) with ``cuobjdump -sass``;
-2. kernels: each kernel (flash attention, RMSNorm, WKV6) against its plain
-   PyTorch version on the card, at the shapes the serving phases give it
-   and a few more (ragged lengths, other head dims, T = 1, float32), with
-   its time, the plain version's time, one PyTorch library call's time
-   where one computes the same function, and the card's bound; WKV6 also
-   at a state-carry split and a repeat run, both held bitwise;
+2. kernels: each kernel (flash attention, RMSNorm, WKV6 and its backward)
+   against its plain PyTorch version on the card, at the shapes the
+   serving and training phases give it and a few more (ragged lengths,
+   other head dims, T = 1, float32), with its time, the plain version's
+   time, one PyTorch library call's time where one computes the same
+   function, and the card's bound; WKV6 also at a state-carry split and a
+   repeat run, both held bitwise; its backward from the states its
+   forward keeps (y and sT of that forward bitwise the forward's), with a
+   repeat run held bitwise;
 3. qwen3 serving: LM serving through the scheduler.  Full-width
    ``qwen3_32b`` cut to 4 layers, random weights from a seeded generator,
    8 requests of 1024-token prompts in batches of 2 on CUDA-stream lanes.
@@ -79,7 +83,20 @@ Eleven phases, each of which raises on failure (nothing is caught):
    scheduler's stats, and with ``--profile`` one step under the profiler;
    (c) ``python -m repro_torch.launch.train --reduced`` on the card, 12
    steps, then 6 and 12 resumed from its checkpoint: the resumed
-   ``step N:`` lines equal the uninterrupted ones;
+   ``step N:`` lines equal the uninterrupted ones; and the same launcher
+   on the reduced ``rwkv6_1_6b`` (hd 16), 12 steps; (d)
+   ``TaskGraphTrainer`` on ``rwkv6_1_6b`` at full width and depth (24
+   layers), random weights from seed 0: 6 steps (seq 1024, global batch 8,
+   accum 2, AdamW f32, remat, parallel policy) through the WKV6 forward
+   and backward kernels with every plain version refused, checking finite
+   losses, the first against its reckoned value and both kernels' launches
+   a step, then 3 steps under the serial policy (losses equal), and one
+   step's gradients at full width cut to 2 layers against the same step
+   through autograd of the plain recurrence, with float32 activations
+   (held per leaf and over all leaves) and with bf16 ones (held against
+   the float32 gradients no farther than the plain path's); prints the
+   step time, tok/s and peak memory. In (a) also WKV6's autograd function at (d)'s
+   micro-batch shape against autograd through the plain recurrence;
 9. families, in a process of its own: (a) ``hymba_1_5b`` as published (32
    hybrid layers of sliding-window attention and Mamba heads, 6.6 GB f32)
    serves 8 requests of 2048 tokens (the window of 1024 binds in the flash
@@ -115,10 +132,12 @@ Eleven phases, each of which raises on failure (nothing is caught):
 11. the dry run, in a process of its own: (a) ``python -m
    repro_torch.launch.dryrun`` on ``qwen3_32b`` x train_4k on (16, 16),
    ``nemotron_4_340b`` x train_4k on (2, 16, 16) with q8 moments and
-   ``rwkv6_1_6b`` x long_500k on (16, 16), each in a process of its own
-   on fake CUDA tensors in a fake world of 256 or 512 ranks: each cell's
-   roofline terms, peak and trace time, every kernel counted as launches
-   of its operator (WKV6 once a layer: no plain loop); (b) phase 8b's cell
+   ``rwkv6_1_6b`` x long_500k and x train_4k on (16, 16), each in a
+   process of its own on fake CUDA tensors in a fake world of 256 or 512
+   ranks: each cell's roofline terms, peak and trace time, every kernel
+   counted as launches of its operator (WKV6 once a layer in decode; in
+   training its forward twice and its backward once a layer and
+   microbatch: no plain loop); (b) phase 8b's cell
    (``qwen3_32b`` at full width, 2 layers, seq 128, batch 8, accum 2) on
    the (1, 1) mesh of an NCCL world of one rank, counted on fake tensors
    by ``build_cell`` and ``count_step``, then the same step run on the
@@ -129,8 +148,9 @@ Eleven phases, each of which raises on failure (nothing is caught):
    the counted roofline terms and its share of the bf16 peak; a plain
    version of a kernel called on the card fails the phase.
 
-Each serving phase, phase 8b's first run and 9c's launcher run set every kernel's launch
-count to 0 just before it runs and reads the counts just after.
+Each serving phase, phase 8b's and 8d's first runs and 9c's launcher run
+set every kernel's launch count to 0 just before it runs and reads the
+counts just after.
 ``--profile`` adds, to each serving phase, two warm runs, the second under
 ``torch.profiler``, and runs under the serial policy; to phase 8b one
 profiled step; to each benchsuite workload, one more parallel run
@@ -198,6 +218,24 @@ WKV_CASES = [
 # The WKV6 kernel's instantiations: r/k/v type x head dim x with or without
 # the asynchronous copies.  ptxas must report no spill in any of them.
 WKV_KERNELS = 12
+# The WKV6 backward's: the state kernel for each r/k/v type and head dim,
+# the row kernel for each type, and du's kernel.
+WKV_BWD_KERNELS = 9
+# (name, B, T, H, hd, dtype of r, k, v, nonzero s0 and dsT).  The first is
+# rwkv6_1_6b's training shape (phase 8d's micro-batch: B 4, seq 1024),
+# timed, with a zero s0 and no dsT as the training loss gives it.
+WKV_BWD_CASES = [
+    ("rwkv6_1_6b training", 4, 1024, 32, 64, "bfloat16", False),
+    ("f32 s0 and dsT", 2, 256, 8, 64, "float32", True),
+    ("f32 ragged T", 1, 333, 4, 64, "float32", True),
+    ("hd16 ragged", 2, 37, 4, 16, "bfloat16", True),
+    ("hd128 ragged", 1, 50, 2, 128, "bfloat16", True),
+]
+# The backward's tolerances, each of the scale of its output (its largest
+# element): bf16 dr, dk and dv are rounded to bf16 (2^-8 relative); float32
+# outputs sum the same products in another order over up to a thousand
+# steps.
+WKV_BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # (name, shape of x, dtype[, dtype of the scale: float32 where not given]).
 # All but the last are the shapes of the serving phases (qwen3, qwen2-moe,
 # hymba, and internvl's bf16 scales from the serving launcher's bf16
@@ -227,11 +265,13 @@ def reset_launches() -> None:
     for mod in kernel_ops().values():
         mod.launches = 0
     kernel_ops()["wkv6"].launches_t1 = 0
+    kernel_ops()["wkv6"].launches_bwd = 0
 
 
 def read_launches() -> dict:
     counts = {name: mod.launches for name, mod in kernel_ops().items()}
     counts["wkv6_t1"] = kernel_ops()["wkv6"].launches_t1
+    counts["wkv6_bwd"] = kernel_ops()["wkv6"].launches_bwd
     return counts
 
 
@@ -373,12 +413,13 @@ def phase_build() -> dict:
         for kernel, regs, stores, loads in rows:
             print(f"[build] {lib}: {kernel}: {regs} registers, {stores} bytes "
                   f"spill stores, {loads} bytes spill loads")
-        if lib == "wkv6" and text:   # "" when built by an earlier run
+        want = {"wkv6": WKV_KERNELS, "wkv6_bwd": WKV_BWD_KERNELS}
+        if lib in want and text:   # "" when built by an earlier run
             spills = [r for r in rows if r[2] != "0" or r[3] != "0"]
-            if len(rows) != WKV_KERNELS or spills:
+            if len(rows) != want[lib] or spills:
                 raise AssertionError(
-                    f"wkv6: ptxas reported {len(rows)} kernels (expected "
-                    f"{WKV_KERNELS}), spilling: {spills}")
+                    f"{lib}: ptxas reported {len(rows)} kernels (expected "
+                    f"{want[lib]}), spilling: {spills}")
         for line in text.splitlines():
             if "warning" in line or "error" in line:
                 print(f"[build] {lib}: {line.strip()}")
@@ -535,6 +576,99 @@ def phase_wkv6() -> dict:
                 max_abs_err=worst, **timing,
                 decode={k: decode[k] for k in ("ms", "eager_ms", "plain_ms",
                                                "bound_ms", "bound_by")})
+
+
+GRAD_NAMES = ("dr", "dk", "dv", "dw", "du", "ds0")
+
+
+def phase_wkv6_bwd() -> dict:
+    """The WKV6 backward kernel against its plain version on the card, from
+    the same states kept by the forward kernel, at WKV_BWD_CASES: each
+    gradient within WKV_BWD_TOL of its scale, the saving forward's y and
+    sT bitwise those of the forward without saving and its states those of
+    the plain saving forward, and a second backward bitwise the first.
+    The training shape is timed: the backward, the plain backward, the
+    forward with and without kept states, and the card's bound."""
+    import torch
+    from repro_torch.kernels.rwkv6 import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    worst, timing = 0.0, None
+    for i, (label, B, T, H, hd, dt, nonzero) in enumerate(WKV_BWD_CASES):
+        dtype = getattr(torch, dt)
+        r, k, v = (randn(B, T, H, hd).mul(0.5).to(dtype) for _ in range(3))
+        w = torch.exp(-torch.exp(randn(B, T, H, hd) * 0.5))   # float32
+        u = randn(H, hd) * 0.3
+        s0 = randn(B, H, hd, hd) * 0.1 if nonzero else torch.zeros(
+            (B, H, hd, hd), device="cuda")
+        dy = randn(B, T, H * hd).to(dtype)
+        dsT = randn(B, H, hd, hd) * 0.1 if nonzero else None
+        args = (r, k, v, w, u, s0)
+        what = (f"wkv6_bwd {label}: B={B} T={T} H={H} hd={hd} r/k/v {dt}, "
+                f"s0 {'nonzero' if nonzero else 'zero'}, dsT "
+                f"{'given' if nonzero else 'absent'}")
+        y, sT = ops.wkv6_cuda(*args)
+        ys, sTs, states = ops.wkv6_cuda_saving(*args)
+        if not (torch.equal(ys, y) and torch.equal(sTs, sT)):
+            raise AssertionError(f"{what}: the saving forward's y or sT "
+                                 f"differ from the forward's")
+        _, _, want_states = ops.wkv6_plain_saving(*args)
+        check_close(f"{what} (kept states)", states, want_states,
+                    TOL["float32"], WKV_ATOL["float32"])
+        got = ops.wkv6_bwd_cuda(r, k, v, w, u, states, dy, dsT)
+        torch.cuda.synchronize()
+        want = ops.wkv6_bwd_plain(r, k, v, w, u, states, dy, dsT)
+        for name, g, ref in zip(GRAD_NAMES, got, want):
+            if g.dtype != ref.dtype or g.shape != ref.shape:
+                raise AssertionError(f"{what}: {name} is {g.dtype} "
+                                     f"{tuple(g.shape)}, the plain version's "
+                                     f"{ref.dtype} {tuple(ref.shape)}")
+            tol = WKV_BWD_TOL[str(g.dtype)[6:]]
+            scale = float(ref.float().abs().max())
+            worst = max(worst, check_close(f"{what} ({name}, scale "
+                                           f"{scale:.3e})", g, ref, tol,
+                                           tol * scale))
+        again = ops.wkv6_bwd_cuda(r, k, v, w, u, states, dy, dsT)
+        if not all(torch.equal(a, b) for a, b in zip(again, got)):
+            raise AssertionError(f"{what}: two backward runs differ")
+        print(f"[kernels] {what}: the saving forward's y and sT equal the "
+              f"forward's exactly; a second backward equals the first "
+              f"exactly")
+        if i != 0:
+            continue
+        bwd = (r, k, v, w, u, states, dy, dsT)
+        bwd_ms = time_ms(lambda: ops.wkv6_bwd_cuda(*bwd), iters=20)
+        eager_ms = time_ms(lambda: ops.wkv6_bwd_cuda(*bwd), iters=20,
+                           graph=False)
+        plain_ms = time_ms(lambda: ops.wkv6_bwd_plain(*bwd), iters=1,
+                           warmup=1)
+        fwd_ms = time_ms(lambda: ops.wkv6_cuda(*args), iters=20)
+        save_ms = time_ms(lambda: ops.wkv6_cuda_saving(*args), iters=20)
+        flops, nbytes = ops.cost_bwd(r, k, v, w, u, states,
+                                     dy.reshape(r.shape), dsT, got)
+        timing = dict(ms=bwd_ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                      library_ms=None, fwd_ms=fwd_ms, fwd_saving_ms=save_ms,
+                      **bound(flops, nbytes, PEAK_F32_FLOPS))
+        print(f"[kernels] wkv6_bwd at the training shape: kernel "
+              f"{bwd_ms:.4f} ms (issued eagerly {eager_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, library none (no PyTorch call computes "
+              f"WKV6's backward); bytes {nbytes:.4e} B = "
+              f"{timing['bytes_ms']:.4f} ms at the HBM rate, {flops:.4e} "
+              f"float32 FLOP = {timing['ops_ms']:.4f} ms at the float32 "
+              f"rate; bound {timing['bound_ms']:.4f} ms "
+              f"({timing['bound_by']}), {timing['bound_ms'] / bwd_ms:.3f} of "
+              f"it reached; the forward {fwd_ms:.4f} ms, keeping states "
+              f"{save_ms:.4f} ms")
+    return dict(name="wkv6_bwd", route="cuda",
+                source="src/repro_torch/kernels/rwkv6/csrc/wkv6_bwd.cu",
+                replaces="src/repro/kernels/rwkv6/kernel.py:53",
+                replaces_note="no TPU kernel: the backward of wkv6_bh, which "
+                              "the reference takes by differentiating its "
+                              "lax.scan (src/repro/models/rwkv.py:111)",
+                max_abs_err=worst, **timing)
 
 
 def phase_rmsnorm() -> dict:
@@ -876,7 +1010,8 @@ def phase_rwkv(card: str, profile: bool = False) -> dict:
     expect_launches(launches, {"wkv6": cfg.n_layers * n_batches * new,
                                "wkv6_t1": cfg.n_layers * n_batches
                                * (new - 1),
-                               "flash_attention": 0, "rmsnorm": 0})
+                               "flash_attention": 0, "rmsnorm": 0,
+                               "wkv6_bwd": 0})
     return launches
 
 
@@ -1971,6 +2106,22 @@ FAIL_AT, CKPT_EVERY = 5, 5
 # and the final norm in the forward (9), the blocks' 8 again in remat's
 # recompute, for each of 2 micro-batches.
 RMS_PER_STEP = (9 + 8) * TRAIN_ACCUM
+# 8d: rwkv6_1_6b at full width and depth, seq 1024, global batch 8, accum
+# 2 (micro-batches of 4: the backward kernel's training shape), 6 steps;
+# 3 under the serial policy; the gradients of one step at 2 layers.
+RWKV_SEQ, RWKV_BATCH, RWKV_ACCUM, RWKV_STEPS = 1024, 8, 2, 6
+RWKV_SERIAL_STEPS, RWKV_GRAD_LAYERS = 3, 2
+# Per-leaf and whole-model relative Frobenius norms of the kernel's
+# gradients against the plain recurrence's, as
+# tests/test_torch_train.py::test_loss_gradients_match_reference holds the
+# port against the reference, with float32 activations: there the two
+# paths differ only in the order of float32 sums (1.7e-4 over all leaves
+# on an H100).  With the trainer's bf16 activations this step's gradients
+# are rounding noise to 21% of their norm (the plain path's bf16 against
+# its float32 gradients, PERF.md §6), and any two paths that round apart
+# differ by about 3%: there the kernel path's distance from the float32
+# gradients is held to at most GRAD_BF16_RATIO of the plain path's.
+GRAD_LEAF_TOL, GRAD_ALL_TOL, GRAD_BF16_RATIO = 3e-2, 1.5e-2, 1.05
 
 
 def train_autograd_on_card(card: str) -> None:
@@ -2036,9 +2187,53 @@ def train_autograd_on_card(card: str) -> None:
             check_close(f"train chunked attention {label} f32 S {S} GQA "
                         f"{H}/{Hkv} {name}", got, want, 0.0,
                         CHUNK_TOL * scale)
+    train_wkv6_on_card(gen)
     torch.cuda.synchronize()
     print(f"[train] 8a: autograd functions agree with their plain versions "
           f"({card})")
+
+
+def train_wkv6_on_card(gen) -> None:
+    """8a's WKV6: ``WKV6Fn`` (the forward kernel keeping states, then the
+    backward kernel) at 8d's micro-batch shape with a nonzero s0 and a
+    cotangent on sT, against autograd through the plain recurrence."""
+    import torch
+    from repro_torch.kernels.rwkv6 import ops
+    B, T, H, hd = 4, RWKV_SEQ, 32, 64
+    r, k, v = (torch.randn(B, T, H, hd, generator=gen, device="cuda")
+               .mul(0.5).to(torch.bfloat16) for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn(B, T, H, hd, generator=gen,
+                                         device="cuda") * 0.5))
+    u = torch.randn(H, hd, generator=gen, device="cuda") * 0.3
+    s0 = torch.randn(B, H, hd, hd, generator=gen, device="cuda") * 0.1
+    gy = torch.randn(B, T, H * hd, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    gs = torch.randn(B, H, hd, hd, generator=gen, device="cuda") * 0.1
+    args = (r, k, v, w, u, s0)
+    leaves = [t.clone().requires_grad_(True) for t in args]
+    before = (ops.launches, ops.launches_bwd)
+    y, sT = ops.wkv6(*leaves)
+    if (ops.launches, ops.launches_bwd) != (before[0] + 1, before[1]):
+        raise AssertionError("WKV6 under grad did not launch the forward "
+                             "kernel once")
+    torch.autograd.backward([y, sT], [gy, gs])
+    if ops.launches_bwd != before[1] + 1:
+        raise AssertionError("WKV6's backward did not launch its kernel "
+                             "once")
+    ref = [t.clone().requires_grad_(True) for t in args]
+    yr, sTr = ops.wkv6_plain(*ref)
+    torch.autograd.backward([yr, sTr], [gy, gs])
+    what = f"train WKV6Fn B={B} T={T} H={H} hd={hd} bf16"
+    check_close(f"{what} y", y.detach(), yr.detach(), TOL["bfloat16"],
+                TOL["bfloat16"])
+    check_close(f"{what} sT", sT.detach(), sTr.detach(), TOL["float32"],
+                WKV_ATOL["float32"])
+    for name, got, want in zip(GRAD_NAMES, leaves, ref):
+        tol = WKV_BWD_TOL[str(got.grad.dtype)[6:]]
+        scale = float(want.grad.float().abs().max())
+        check_close(f"{what} {name} against autograd through the plain "
+                    f"recurrence (scale {scale:.3e})", got.grad, want.grad,
+                    tol, tol * scale)
 
 
 def free_card(after: str = "") -> None:
@@ -2052,15 +2247,17 @@ def free_card(after: str = "") -> None:
               f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
 
 
-def trainer_run(cfg, steps: int, **kw):
-    """A TaskGraphTrainer on the card: its report, the train_step spans'
-    seconds, the scheduler's stats and the peak device memory; the
-    trainer's scheduler is shut down and its state freed."""
+def trainer_run(cfg, steps: int, seq: int = TRAIN_SEQ,
+                batch: int = TRAIN_BATCH, accum: int = TRAIN_ACCUM, **kw):
+    """A TaskGraphTrainer on the card (8b's seq, batch and accum unless
+    given): its report, the train_step spans' seconds, the scheduler's
+    stats and the peak device memory; the trainer's scheduler is shut down
+    and its state freed."""
     import torch
     from repro_torch.runtime import TaskGraphTrainer
     torch.cuda.reset_peak_memory_stats()
-    tr = TaskGraphTrainer(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
-                          accum=TRAIN_ACCUM, device="cuda", **kw)
+    tr = TaskGraphTrainer(cfg, seq_len=seq, global_batch=batch,
+                          accum=accum, device="cuda", **kw)
     rep = tr.run(steps, metrics_every=1)
     torch.cuda.synchronize()
     spans = [sp.t1 - sp.t0 for sp in tr.sched.timeline.spans
@@ -2072,10 +2269,13 @@ def trainer_run(cfg, steps: int, **kw):
     return rep, spans, stats, torch.cuda.max_memory_allocated()
 
 
-def profile_train_step(cfg, card: str) -> None:
-    """One step of the trainer's step function, called directly after two
-    warm steps, under ``torch.profiler``: the device busy share and the
-    kernels that take the device time."""
+def profile_train_step(cfg, card: str, seq: int = TRAIN_SEQ,
+                       global_batch: int = TRAIN_BATCH,
+                       accum: int = TRAIN_ACCUM) -> None:
+    """One step of the trainer's step function (8b's seq, batch and accum
+    unless given), called directly after two warm steps, under
+    ``torch.profiler``: the device busy share and the kernels that take
+    the device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data import SyntheticTokenStream
@@ -2087,8 +2287,7 @@ def profile_train_step(cfg, card: str) -> None:
                     device="cuda")
     state = TrainState(model, opt.init(model))
     step = make_train_step(cfg, opt)
-    stream = SyntheticTokenStream(cfg, TRAIN_SEQ, TRAIN_BATCH,
-                                  accum=TRAIN_ACCUM)
+    stream = SyntheticTokenStream(cfg, seq, global_batch, accum=accum)
     batch = {k: torch.from_numpy(v).cuda()
              for k, v in stream.batch(0).items()}
     for _ in range(2):
@@ -2101,7 +2300,8 @@ def profile_train_step(cfg, card: str) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy, span = device_busy_us(prof.events())
-    print(f"[profile train] one step under the profiler: wall {wall:.4f} s, "
+    print(f"[profile train] {cfg.name}, {cfg.n_layers} layers: one step "
+          f"under the profiler: wall {wall:.4f} s, "
           f"device busy {busy / 1e6:.4f} s over a {span / 1e6:.4f} s device "
           f"span, busy share of the wall {busy / 1e6 / wall:.4f} ({card})")
     table = prof.key_averages().table(sort_by="self_cuda_time_total",
@@ -2165,7 +2365,8 @@ def train_full_width(card: str, profile: bool) -> dict:
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
     expect_launches(launches, {"rmsnorm": RMS_PER_STEP * TRAIN_STEPS,
-                               "flash_attention": 0, "wkv6": 0})
+                               "flash_attention": 0, "wkv6": 0,
+                               "wkv6_bwd": 0})
 
     serial, sspans, _, _ = trainer_run(
         cfg, 5, scheduler=GrScheduler(policy="serial", device="cuda"))
@@ -2206,6 +2407,167 @@ def train_full_width(card: str, profile: bool) -> dict:
     np.testing.assert_allclose(rrep.losses[-1], losses[-1], rtol=1e-5)
     if profile:
         profile_train_step(cfg, card)
+    return launches
+
+
+def rwkv6_gradients(cfg, plain: bool, f32: bool) -> tuple:
+    """One micro-batch's loss and per-leaf float32 gradients of ``cfg``
+    (random weights from seed 0, remat), through the WKV6 kernels or, with
+    ``plain``, through autograd of the plain recurrence (``R.wkv6``
+    patched, as phase 4 patches it); with ``f32`` the embedding's output,
+    and so every activation after it, stays float32 instead of bf16."""
+    from unittest import mock
+
+    import torch
+    from repro_torch.data import SyntheticTokenStream
+    from repro_torch.kernels.rwkv6 import ops
+    from repro_torch.models import init_lm
+    from repro_torch.models import rwkv as R
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.steps import make_loss_fn
+    model = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda")
+    model.requires_grad_(True)
+    stream = SyntheticTokenStream(cfg, RWKV_SEQ, RWKV_BATCH,
+                                  accum=RWKV_ACCUM)
+    mb = {k: torch.from_numpy(v[0]).cuda()
+          for k, v in stream.batch(0).items()}
+    embed = T._embed
+    with contextlib.ExitStack() as stack:
+        if plain:
+            stack.enter_context(mock.patch.object(R, "wkv6", ops.wkv6_plain))
+        if f32:
+            stack.enter_context(mock.patch.object(
+                T, "_embed", lambda *a, **k: embed(*a, **k).float()))
+        total, _ = make_loss_fn(cfg, remat=True)(model, mb)
+        total.backward()
+    grads = {n: p.grad.float() for n, p in model.named_parameters()}
+    loss = float(total.detach())
+    del model, total
+    free_card()
+    return loss, grads
+
+
+def grad_distance(got: dict, want: dict) -> tuple:
+    """(worst leaf, its relative Frobenius distance, the distance over all
+    leaves) of ``got``'s gradients from ``want``'s."""
+    import torch
+    num = den = 0.0
+    worst = ("", 0.0)
+    for name, g in got.items():
+        err = float(torch.linalg.vector_norm(g - want[name]))
+        ref = float(torch.linalg.vector_norm(want[name]))
+        rel = err / ref if ref else err
+        worst = max(worst, (name, rel), key=lambda x: x[1])
+        num += err ** 2
+        den += ref ** 2
+    return worst[0], worst[1], (num / den) ** 0.5
+
+
+def train_rwkv6(card: str, profile: bool) -> dict:
+    """8d: TaskGraphTrainer on rwkv6_1_6b at full width and depth through
+    the WKV6 forward and backward kernels; returns the kernels' launch
+    counts of the first run.  ``profile`` adds one profiled step."""
+    import math
+    import statistics
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import GrScheduler
+
+    cfg = get_config("rwkv6_1_6b")
+    n_params = cfg.param_count()
+    tokens = RWKV_BATCH * RWKV_SEQ
+    # Unit-variance rows after the final layernorm against a head of std
+    # 0.02, as 8b reckons it: E[lse] = ln V + d * 0.02² / 2, and the
+    # z-loss adds 1e-4 * lse².
+    lse = math.log(cfg.vocab) + cfg.d_model * 0.02 ** 2 / 2
+    first_want = lse + 1e-4 * lse ** 2
+    print(f"[train] 8d: {cfg.name} at full width and depth, "
+          f"{cfg.n_layers} layers, {n_params:,} f32 parameters "
+          f"({16 * n_params / 1e9:.2f} GB with gradients and two AdamW "
+          f"moments); seq {RWKV_SEQ}, global batch {RWKV_BATCH}, accum "
+          f"{RWKV_ACCUM}, remat, parallel policy")
+    t0 = time.perf_counter()
+    reset_launches()                      # count the main path only
+    with kernels_only_on_card():
+        rep, spans, stats, peak = trainer_run(cfg, RWKV_STEPS, seq=RWKV_SEQ,
+                                              batch=RWKV_BATCH,
+                                              accum=RWKV_ACCUM)
+    launches = read_launches()
+    wall = time.perf_counter() - t0
+    losses = rep.losses
+    steady = spans[2:]
+    med = statistics.median(steady)
+    print(f"[train] 8d {RWKV_STEPS} steps: losses {json.dumps(losses)}; "
+          f"first {losses[0]:.4f} against {first_want:.4f} reckoned (ln V "
+          f"{math.log(cfg.vocab):.4f})")
+    print(f"[train] 8d train_step spans (s) {json.dumps(spans)}: median "
+          f"after the first two {med:.4f} s (min {min(steady):.4f}, max "
+          f"{max(steady):.4f}), {tokens / med:.1f} tok/s; run wall "
+          f"{wall:.2f} s with init; peak device memory "
+          f"{peak / 2**30:.3f} GiB ({peak / 1e9:.2f} GB); launches "
+          f"{json.dumps(launches)} ({card})")
+    if len(losses) != RWKV_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"8d losses not finite: {losses}")
+    if abs(losses[0] - first_want) > 0.1:
+        raise AssertionError(f"8d first loss {losses[0]} is not within 0.1 "
+                             f"of {first_want:.4f}")
+    # WKV6 once a layer in each micro-batch's forward and again in remat's
+    # recompute (both keep states: grad is on in both), its backward once
+    # a layer and micro-batch; layernorm only, no attention.
+    per_step = cfg.n_layers * RWKV_ACCUM
+    expect_launches(launches, {"wkv6": 2 * per_step * RWKV_STEPS,
+                               "wkv6_bwd": per_step * RWKV_STEPS,
+                               "wkv6_t1": 0, "rmsnorm": 0,
+                               "flash_attention": 0})
+
+    serial, sspans, _, _ = trainer_run(
+        cfg, RWKV_SERIAL_STEPS, seq=RWKV_SEQ, batch=RWKV_BATCH,
+        accum=RWKV_ACCUM, scheduler=GrScheduler(policy="serial",
+                                                device="cuda"))
+    diff = float(np.max(np.abs(np.subtract(
+        serial.losses, losses[:RWKV_SERIAL_STEPS]))))
+    print(f"[train] 8d serial policy, {RWKV_SERIAL_STEPS} steps: losses "
+          f"{json.dumps(serial.losses)}; largest difference from the "
+          f"parallel run {diff:.3e} (rtol 1e-5); steps "
+          f"{json.dumps(sspans)} s ({card})")
+    np.testing.assert_allclose(serial.losses, losses[:RWKV_SERIAL_STEPS],
+                               rtol=1e-5)
+
+    cut = dataclasses.replace(cfg, n_layers=RWKV_GRAD_LAYERS)
+    runs = {}
+    for f32 in (True, False):
+        with kernels_only_on_card():
+            runs["kernel", f32] = rwkv6_gradients(cut, False, f32)
+        runs["plain", f32] = rwkv6_gradients(cut, True, f32)
+    act = {True: "float32", False: "bf16"}
+    for f32 in (True, False):
+        (loss_k, got), (loss_p, want) = runs["kernel", f32], runs["plain", f32]
+        leaf, rel, whole = grad_distance(got, want)
+        print(f"[train] 8d one step's gradients at full width cut to "
+              f"{RWKV_GRAD_LAYERS} layers, {act[f32]} activations, the WKV6 "
+              f"kernels against autograd through the plain recurrence: loss "
+              f"{loss_k!r} against {loss_p!r}; worst leaf {leaf} {rel:.4e}, "
+              f"all leaves {whole:.4e}, relative Frobenius ({card})")
+        if f32 and (rel > GRAD_LEAF_TOL or whole > GRAD_ALL_TOL):
+            raise AssertionError(f"8d float32 gradients differ: {leaf} "
+                                 f"{rel:.3e} (held at {GRAD_LEAF_TOL}), all "
+                                 f"{whole:.3e} (held at {GRAD_ALL_TOL})")
+    truth = runs["plain", True][1]
+    k_far = grad_distance(runs["kernel", False][1], truth)[2]
+    p_far = grad_distance(runs["plain", False][1], truth)[2]
+    print(f"[train] 8d bf16 gradients against the plain float32 ones, all "
+          f"leaves: kernel path {k_far:.4e}, plain path {p_far:.4e}, ratio "
+          f"{k_far / p_far:.4f} (held at {GRAD_BF16_RATIO}) ({card})")
+    if k_far > GRAD_BF16_RATIO * p_far:
+        raise AssertionError(f"8d: the kernel path's bf16 gradients are "
+                             f"{k_far:.3e} from the float32 ones, the plain "
+                             f"path's {p_far:.3e}")
+    del runs, truth
+    free_card()
+    if profile:
+        profile_train_step(cfg, card, RWKV_SEQ, RWKV_BATCH, RWKV_ACCUM)
     return launches
 
 
@@ -2253,6 +2615,29 @@ def train_cli(card: str) -> None:
                              f"the uninterrupted {steps(full)}")
     print(f"[train] 8c: the resumed run's step lines equal the "
           f"uninterrupted run's character for character ({card})")
+    # rwkv6 through the launcher: the reduced config (hd 16) trains on the
+    # card through both WKV6 kernels.
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "rwkv6_1_6b", "--reduced", "--steps", "12"], env=env,
+        capture_output=True, text=True, timeout=300)
+    lines = res.stdout.splitlines()
+    print(f"[train] CLI rwkv6_1_6b --reduced --steps 12: "
+          f"{time.perf_counter() - t0:.2f} s: {json.dumps(lines)}")
+    if res.returncode != 0:
+        raise AssertionError(f"rwkv6 train CLI failed: {res.stdout}"
+                             f"{res.stderr}")
+    if not lines or not lines[0].startswith("device: cuda"):
+        raise AssertionError(f"the rwkv6 CLI did not run on the card: "
+                             f"{lines[:1]}")
+    got = steps(lines)
+    if list(got) != ["step 5", "step 10", "step 12"] or not all(
+            "loss=nan" not in ln and "loss=inf" not in ln
+            for ln in got.values()):
+        raise AssertionError(f"rwkv6 CLI step lines {got}")
+    print(f"[train] 8c: rwkv6 trains through the launcher on the card "
+          f"({card})")
 
 
 def phase_train_process(profile: bool) -> dict:
@@ -2288,8 +2673,11 @@ def phase_train(card: str, profile: bool = False) -> dict:
     t0 = time.perf_counter()
     train_cli(card)
     print(f"[train] 8c {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    rwkv = train_rwkv6(card, profile)
+    print(f"[train] 8d {time.perf_counter() - t0:.2f} s")
     print(f"[train] phase {time.perf_counter() - t_phase:.2f} s")
-    return launches
+    return {"qwen3": launches, "rwkv6": rwkv}
 
 
 # The families phase, in a process of its own.  9a: hymba_1_5b as published
@@ -2582,8 +2970,9 @@ PHASE8B_STEP_S = 0.196            # phase 8b's trainer step, PERF.md §6
 @contextlib.contextmanager
 def kernels_only_on_card():
     """Makes every kernel wrapper's plain version raise for the duration
-    (on the card the plain version is never the path), and counts the
-    wrappers' ``DTensor`` entries (their ``local_map`` calls)."""
+    (on the card the plain version is never the path; WKV6's saving forward
+    and backward too), and counts the wrappers' ``DTensor`` entries (their
+    ``local_map`` calls)."""
     from repro_torch.kernels.flash_attention import ops as flash
     from repro_torch.kernels.rmsnorm import ops as rms
     from repro_torch.kernels.rwkv6 import ops as wkv
@@ -2608,6 +2997,8 @@ def kernels_only_on_card():
     patch(rms, "rmsnorm_ref", refuse("rmsnorm"))
     patch(flash, "attention_ref", refuse("flash_attention"))
     patch(wkv, "wkv6_plain", refuse("wkv6"))
+    patch(wkv, "wkv6_plain_saving", refuse("wkv6"))
+    patch(wkv, "wkv6_bwd_plain", refuse("wkv6_bwd"))
     patch(rms, "_rmsnorm_sharded", counting("rmsnorm",
                                             rms._rmsnorm_sharded))
     patch(flash, "_flash_sharded", counting("flash_attention",
@@ -2925,7 +3316,7 @@ def phase_mesh(card: str) -> dict:
         dist.destroy_process_group()
     print(f"[mesh] phase {time.perf_counter() - t_phase:.2f} s")
     return {name: launches[name] + space[name] + serve[name]
-            for name in ("flash_attention", "rmsnorm", "wkv6")}
+            for name in ("flash_attention", "rmsnorm", "wkv6", "wkv6_bwd")}
 
 
 def phase_mesh_process() -> dict:
@@ -2950,14 +3341,21 @@ def phase_mesh_process() -> dict:
 DRYRUN_ONLY = "--phase-11-process"
 DRYRUN_CELLS = [("qwen3_32b", "train_4k", False),
                 ("nemotron_4_340b", "train_4k", True),
-                ("rwkv6_1_6b", "long_500k", False)]
+                ("rwkv6_1_6b", "long_500k", False),
+                ("rwkv6_1_6b", "train_4k", False)]
 # Each cell's kernel calls a step: qwen3's RMSNorms (4 a layer and the
 # final norm forward, the layers' 4 again in remat's recompute; 64 layers,
 # 16 microbatches), none in nemotron's (LayerNorm, and training takes the
-# plain attention), rwkv6's one WKV6 a layer (24) in a decode step: the
-# plain loop would count none.
-DRYRUN_KERNELS = {"qwen3_32b": {"rmsnorm": (2 * 4 * 64 + 1) * 16},
-                  "nemotron_4_340b": {}, "rwkv6_1_6b": {"wkv6": 24}}
+# plain attention), rwkv6's one WKV6 a layer (24) in a decode step, and in
+# its train step (16 microbatches of 16 sequences) the WKV6 forward twice
+# a layer (the forward and remat's recompute) and its backward once: the
+# plain loops would count none.
+DRYRUN_KERNELS = {("qwen3_32b", "train_4k"): {"rmsnorm": (2 * 4 * 64 + 1)
+                                              * 16},
+                  ("nemotron_4_340b", "train_4k"): {},
+                  ("rwkv6_1_6b", "long_500k"): {"wkv6": 24},
+                  ("rwkv6_1_6b", "train_4k"): {"wkv6": 2 * 24 * 16,
+                                               "wkv6_bwd": 24 * 16}}
 # 11b's predicted peak (the fake trace's MemTracker) over the card's
 # max_memory_allocated(), in the counted step and in the same step run
 # without the counter, is held inside these bands: 0.8146 and 1.0622 in
@@ -3004,14 +3402,14 @@ def dryrun_cells(card: str, out: str) -> None:
               f"{r['useful_flops_ratio']:.4f}; kernels "
               f"{json.dumps(h['kernel_launches'])}; counted from H100 "
               f"datasheet constants, not measured ({card})")
-        if h["kernel_launches"] != DRYRUN_KERNELS[arch]:
+        if h["kernel_launches"] != DRYRUN_KERNELS[arch, shape]:
             raise AssertionError(f"{tag}: kernels counted "
                                  f"{h['kernel_launches']}, not "
-                                 f"{DRYRUN_KERNELS[arch]}")
+                                 f"{DRYRUN_KERNELS[arch, shape]}")
         if arch == "nemotron_4_340b" and not res["meta"]["quantized_opt"]:
             raise AssertionError("nemotron's train cell ran without q8 "
                                  "moments")
-    print(f"[dryrun] 11a three cells at once: {wall:.2f} s")
+    print(f"[dryrun] 11a {len(DRYRUN_CELLS)} cells at once: {wall:.2f} s")
 
 
 def dryrun_against_step(card: str) -> dict:
@@ -3099,7 +3497,7 @@ def dryrun_against_step(card: str) -> dict:
         raise AssertionError(f"the card's step counted {real.flops} flops, "
                              f"the fake one {fake.flops}")
     expect_launches(launches, {"rmsnorm": RMS_PER_STEP, "flash_attention": 0,
-                               "wkv6": 0})
+                               "wkv6": 0, "wkv6_bwd": 0})
     if dict(real.kernel_launches) != {"rmsnorm": RMS_PER_STEP} or dict(
             fake.kernel_launches) != {"rmsnorm": RMS_PER_STEP}:
         raise AssertionError(f"kernels counted {dict(real.kernel_launches)} "
@@ -3177,7 +3575,8 @@ def main() -> int:
         return 0
     t0 = time.perf_counter()
     sass = phase_build()
-    rows = [phase_flash(sass), phase_rmsnorm(), phase_wkv6()]
+    rows = [phase_flash(sass), phase_rmsnorm(), phase_wkv6(),
+            phase_wkv6_bwd()]
     launches = phase_qwen3(card, profile)
     # The qwen3 engine's reference cycles hold its weights until collected.
     free_card("qwen3 serving")
@@ -3196,15 +3595,20 @@ def main() -> int:
     mesh = phase_mesh_process()
     dry = phase_dryrun_process()
     for row in rows:
-        row["launches"] = (rwkv if row["name"] == "wkv6" else launches)[
-            row["name"]]
-        row["launches_moe"] = moe[row["name"]]
-        row["launches_train"] = train[row["name"]]
-        row["launches_hymba"] = families["hymba"][row["name"]]
-        row["launches_internvl"] = families["internvl"][row["name"]]
-        row["launches_mesh"] = mesh[row["name"]]
-        row["launches_dryrun_step"] = dry[row["name"]]
-        if row["name"] == "wkv6":
+        name = row["name"]
+        # each kernel's main path: serving (qwen3's, rwkv6's for the WKV6
+        # forward), rwkv6's training for the WKV6 backward
+        main_path = {"wkv6": rwkv, "wkv6_bwd": train["rwkv6"]}.get(
+            name, launches)
+        row["launches"] = main_path[name]
+        row["launches_moe"] = moe[name]
+        row["launches_train"] = train["qwen3"][name]
+        row["launches_train_rwkv6"] = train["rwkv6"][name]
+        row["launches_hymba"] = families["hymba"][name]
+        row["launches_internvl"] = families["internvl"][name]
+        row["launches_mesh"] = mesh[name]
+        row["launches_dryrun_step"] = dry[name]
+        if name == "wkv6":
             row["launches_decode"] = rwkv["wkv6_t1"]
             row["launches_prefill"] = rwkv["wkv6"] - rwkv["wkv6_t1"]
     print(f"[done] {time.perf_counter() - t0:.2f} s")

@@ -29,8 +29,7 @@ def entry(path: Path) -> str:
         return "missing"
     res = json.loads(path.read_text())
     if "skipped" in res:
-        return ("skip: no WKV6 backward (C8)" if "WKV6" in res["skipped"]
-                else "skip: full attention")
+        return "skip: full attention"
     if "error" in res:
         return "error"
     m, r = res["memory"], res["roofline"]

@@ -32,6 +32,7 @@ SOURCES: Dict[str, Path] = {
     "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
     "rmsnorm": _PKG / "rmsnorm" / "csrc" / "rmsnorm.cu",
     "wkv6": _PKG / "rwkv6" / "csrc" / "wkv6.cu",
+    "wkv6_bwd": _PKG / "rwkv6" / "csrc" / "wkv6_bwd.cu",
 }
 
 _lock = threading.Lock()

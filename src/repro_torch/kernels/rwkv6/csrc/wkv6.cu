@@ -69,6 +69,12 @@
 // the one-block-per-head kernel it replaced.  ptxas: 85 to 138 registers a
 // thread, no spill, in the 12 instantiations (chip_smoke.py's build phase
 // prints them and fails on a spill).
+//
+// Saved states.  Given a `states` buffer (B, H, ceil(T / kCT), hd, hd) in
+// float32, the consumers also store S at the start of every chunk: state c
+// is S before step c * kCT (state 0 is s0).  The backward (wkv6_bwd.cu)
+// starts each chunk from it.  The stores touch no value the arithmetic
+// reads, so y and sT are bitwise those of a launch without the buffer.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -214,6 +220,7 @@ struct Params {
   const float* s0;   // (B, H, hd, hd), contiguous
   void* y;           // (B, T, H, hd), in r's type
   float* sT;         // (B, H, hd, hd), contiguous
+  float* states;     // (B, H, ceil(T / kCT), hd, hd), contiguous, or null
   int B, T, H;
   long long r_sb, r_st, r_sh;   // element strides of (B, T, H, hd); d is 1
   long long k_sb, k_st, k_sh;
@@ -491,6 +498,15 @@ __global__ void __launch_bounds__(Shape<HD>::NT) wkv6_kernel(const Params p) {
     for (int c = 0; c < nchunks; ++c) {
       const int n = min(kCT, p.T - c * kCT), buf = c % kBufs;
       unsigned char* bf = buf0 + buf * L::BYTES;
+      if (p.states) {   // S before step c * kCT, for the backward
+        float* st = p.states +
+                    (static_cast<long long>(bh) * nchunks + c) * HD * HD +
+                    j0 + 2 * jp;
+#pragma unroll
+        for (int m = 0; m < C::RPT; ++m)
+          *reinterpret_cast<float2*>(st + (q * C::RPT + m) * HD) =
+              make_float2(S[m][0], S[m][1]);
+      }
       mbar_wait(smem_u32(&full[buf]), (c / kBufs) & 1);
       if (n == kCT) {
         run_chunk<TR, HD, true>(S, bf, n, jp, q);
@@ -621,16 +637,18 @@ int dispatch(const Params& p, int hd, cudaStream_t stream) {
 
 #define WKV6_ARGS                                                         \
   const void *r, const void *k, const void *v, const void *w, const void *u, \
-      const void *s0, void *y, void *sT, int rkv_dtype, int B, int T, int H,  \
-      int hd, long long r_sb, long long r_st, long long r_sh, long long k_sb, \
-      long long k_st, long long k_sh, long long v_sb, long long v_st,         \
-      long long v_sh, long long w_sb, long long w_st, long long w_sh,         \
-      long long y_sb, long long y_st, long long y_sh, void *stream
+      const void *s0, void *y, void *sT, void *states, int rkv_dtype, int B,  \
+      int T, int H, int hd, long long r_sb, long long r_st, long long r_sh,   \
+      long long k_sb, long long k_st, long long k_sh, long long v_sb,         \
+      long long v_st, long long v_sh, long long w_sb, long long w_st,         \
+      long long w_sh, long long y_sb, long long y_st, long long y_sh,         \
+      void *stream
 
 #define WKV6_PARAMS                                                         \
   Params {                                                                  \
     r, k, v, static_cast<const float*>(w), static_cast<const float*>(u),    \
-        static_cast<const float*>(s0), y, static_cast<float*>(sT), B, T, H, \
+        static_cast<const float*>(s0), y, static_cast<float*>(sT),          \
+        static_cast<float*>(states), B, T, H,                               \
         r_sb, r_st, r_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, w_sb, w_st,   \
         w_sh, y_sb, y_st, y_sh                                              \
   }
@@ -638,9 +656,10 @@ int dispatch(const Params& p, int hd, cudaStream_t stream) {
 extern "C" {
 
 // Type code rkv_dtype for r, k, v and y: 0 = float32, 1 = bfloat16.  w, u,
-// s0 and sT are float32; u, s0 and sT are contiguous.  Returns 0, a
-// cudaError_t, or -1 for an unsupported head dim or type.  Launches on
-// `stream`, does not synchronize.
+// s0 and sT are float32; u, s0 and sT are contiguous.  `states` is null
+// or the (B, H, ceil(T / 16), hd, hd) float32 buffer of saved states.
+// Returns 0, a cudaError_t, or -1 for an unsupported head dim or type.
+// Launches on `stream`, does not synchronize.
 int wkv6_fwd(WKV6_ARGS) {
   cudaGetLastError();   // clear an unrelated earlier error of this thread
   const Params p = WKV6_PARAMS;

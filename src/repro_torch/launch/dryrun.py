@@ -62,11 +62,6 @@ from .mesh import (HBM_BW, HBM_BYTES, INTERNODE_BW, NVLINK_BW,
                    PEAK_BF16_FLOPS, make_production_mesh, mesh_axes)
 from .specs import build_cell, make_optimizer, plan_accum
 
-# rwkv6 trains on the card only through a WKV6 backward kernel (ROADMAP.md
-# C8, B4); the plain recurrence is not the card's path
-NO_WKV6_BACKWARD = ("skip: the card's WKV6 kernel has no backward "
-                    "(ROADMAP.md C8), so rwkv6 does not train on the card")
-
 
 def roofline_terms(stats: HLOStats, mem, chips: int, cfg, cell) -> dict:
     """Three-term roofline (§Roofline).  The counts are per device (each
@@ -322,9 +317,6 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     for c, skip in cells(arch):
         if c.name == shape_name and skip:
             return {"arch": arch, "shape": shape_name, "skipped": skip}
-    if cell.kind == "train" and cfg.family == "ssm":
-        return {"arch": arch, "shape": shape_name,
-                "skipped": NO_WKV6_BACKWARD}
 
     _fake_world(512 if multi_pod else 256)
     try:

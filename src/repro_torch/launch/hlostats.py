@@ -194,7 +194,10 @@ def _kernel_costs() -> dict:
     return {torch.ops.repro_torch.flash_attention_fwd.default:
             ("flash_attention", flash.cost),
             torch.ops.repro_torch.rmsnorm_fwd.default: ("rmsnorm", rms.cost),
-            torch.ops.repro_torch.wkv6_fwd.default: ("wkv6", wkv.cost)}
+            torch.ops.repro_torch.wkv6_fwd.default: ("wkv6", wkv.cost),
+            torch.ops.repro_torch.wkv6_fwd_save.default: ("wkv6", wkv.cost),
+            torch.ops.repro_torch.wkv6_bwd.default: ("wkv6_bwd",
+                                                     wkv.cost_bwd)}
 
 
 def _group(name: str) -> tuple:

@@ -13,7 +13,9 @@ hand-written kernel on the card, the plain loop on the CPU.  Sequence mode
 float32, so that y reaches the group norm in float32 as the reference's
 single plain step (``_wkv_step``) leaves it.  The reference's chunked
 ``jax.checkpoint`` scan exists only for the backward pass and is not
-carried over.
+carried over: under grad ``wkv6`` goes through ``WKV6Fn``, whose forward
+keeps the state every 16 steps and whose backward (the backward kernel
+on the card, the plain loop on the CPU) recomputes each chunk from it.
 
 A state is a dict ``{"shift", "wkv"}`` (the block adds ``"cmix_shift"``);
 ``apply_rwkv_seq`` and ``apply_rwkv_step`` replace its entries in place and
@@ -28,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.rwkv6.ops import wkv6
-from ..sharding.context import split_heads, use_weight
+from ..sharding.context import merge_heads, split_heads, use_weight
 from .layers import _param, normal_init
 
 
@@ -104,12 +106,11 @@ def _projections(p: TimeMix, x, x_prev, dtype):
 def _group_norm(x, scale, H: int):
     """LayerNorm per head over hd (RWKV's ln_x), eps 64e-5; output in x's
     dtype."""
-    B = x.shape[0]
-    xs = x.reshape(B, H, -1).float()
+    xs = split_heads(x, H, x.shape[-1] // H).float()
     mu = xs.mean(-1, keepdim=True)
     var = xs.var(-1, keepdim=True, unbiased=False)
     y = (xs - mu) * torch.rsqrt(var + 64e-5)
-    return (y.reshape(B, -1) * scale.float()).to(x.dtype)
+    return (merge_heads(y) * scale.float()).to(x.dtype)
 
 
 def apply_rwkv_seq(cfg, p: TimeMix, x, state) -> Tuple[torch.Tensor, dict]:

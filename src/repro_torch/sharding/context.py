@@ -189,6 +189,18 @@ def split_heads(x, n_heads: int, hd: int):
     return x.reshape(*x.shape[:-1], n_heads, hd)
 
 
+def merge_heads(x):
+    """(..., n_heads, hd) -> (..., n_heads * hd), ``split_heads``'s
+    inverse.  A ``DTensor`` result is pinned to its own layout (a no-op
+    forward), so that its gradient, in whatever layout the next product
+    hands it back, returns to that layout before the backward's view
+    splits the heads again: a shard must hold whole heads."""
+    y = x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+    if _active(y):
+        y = y.redistribute(y.device_mesh, y.placements)
+    return y
+
+
 def pin_attention_blocks(q, k, v):
     """Pin the blocked attention's inputs: batch over DP, kv-heads over
     "model" when divisible, and the sequence and head dims REPLICATED so

@@ -288,6 +288,58 @@ def test_kernel_wrappers_on_dtensors_equal_whole_tensor_calls():
     assert not bad, bad
 
 
+def test_wkv6_gradients_on_dtensors_equal_whole_tensor_gradients():
+    """``WKV6Fn`` through ``local_map`` on a 2-rank mesh with the batch,
+    the heads, time (gathered first) or nothing sharded, and a cotangent
+    on both outputs: every input's gradient, gathered, equals the
+    gradient of the call on whole tensors (u's a partial sum over batch
+    shards, s0's sharded with the batch and the heads), to 1e-5 of its
+    scale (the same float32 sums, the batch's du in two parts)."""
+    res = run_gloo("""
+        from torch.distributed.device_mesh import init_device_mesh
+        from torch.distributed.tensor import (Replicate, Shard,
+                                              distribute_tensor)
+        from repro_torch.kernels.rwkv6.ops import wkv6
+        mesh = init_device_mesh("cpu", (WORLD,), mesh_dim_names=("model",))
+        g = torch.Generator().manual_seed(1)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g)
+
+        def put(t, pl):
+            return distribute_tensor(t, mesh, [pl], src_data_rank=None)
+        r, k, v = rnd(2, 20, 4, 16), rnd(2, 20, 4, 16), rnd(2, 20, 4, 16)
+        w = torch.rand((2, 20, 4, 16), generator=g) * 0.5 + 0.4
+        u, s0 = rnd(4, 16), rnd(2, 4, 16, 16) * 0.1
+        gy, gs = rnd(2, 20, 64), rnd(2, 4, 16, 16) * 0.1
+        whole = [t.clone().requires_grad_(True) for t in (r, k, v, w, u,
+                                                          s0)]
+        y, sT = wkv6(*whole)
+        ((y * gy).sum() + (sT * gs).sum()).backward()
+        diffs = {}
+        # (r, k, v, w's placement, u's, s0's): u and s0 follow the heads,
+        # s0 the batch too
+        for pl, u_pl, s_pl in ((Shard(0), Replicate(), Shard(0)),
+                               (Shard(2), Shard(0), Shard(1)),
+                               (Shard(1), Replicate(), Replicate()),
+                               (Replicate(), Replicate(), Replicate())):
+            ins = [put(t, pl) for t in (r, k, v, w)] + [put(u, u_pl),
+                                                        put(s0, s_pl)]
+            ins = [t.detach().requires_grad_(True) for t in ins]
+            y, sT = wkv6(*ins)
+            ((y * put(gy, Replicate())).sum()
+             + (sT * put(gs, Replicate())).sum()).backward()
+            for name, got, want in zip("rkvwus", ins, whole):
+                err = (got.grad.full_tensor() - want.grad).abs().max()
+                diffs[f"d{name} {pl}"] = float(
+                    err / want.grad.abs().max())
+        print(json.dumps(diffs))
+    """, world=2)
+    assert len(res) == 24, res
+    bad = {k: d for k, d in res.items() if d > 1e-5}
+    assert not bad, bad
+
+
 
 @pytest.mark.parametrize("arch", ["qwen3_32b", "qwen2_moe_a2_7b"])
 def test_sequence_sharded_train_step_matches_the_plain_step(arch):

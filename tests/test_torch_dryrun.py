@@ -221,6 +221,56 @@ def test_kernel_operator_fakes_and_counted_formula(kernel):
     assert mod.launches == before
 
 
+@pytest.mark.parametrize("direction", ["forward keeping states",
+                                       "backward"])
+def test_wkv6_training_operators_fake_and_counted_formula(direction):
+    """WKV6's two training launches on fake CUDA tensors: the forward that
+    keeps the state every 16 steps (``repro_torch::wkv6_fwd_save``,
+    counted as a ``wkv6`` launch) and the backward
+    (``repro_torch::wkv6_bwd``, counted as ``wkv6_bwd`` by its own
+    formula: 13·hd² float32 flops a token and head, each operand and the
+    kept states once) give the plain versions' shapes and types, count one
+    launch each, and launch nothing."""
+    from repro_torch.kernels.rwkv6 import ops as wkv
+    bf, f32 = torch.bfloat16, torch.float32
+    B, T, H, hd = 2, 37, 4, 64
+    nch = -(-T // 16)
+    io = B * T * H * hd
+    fwd_specs = [((B, T, H, hd), bf)] * 3 + [((B, T, H, hd), f32),
+                                             ((H, hd), f32),
+                                             ((B, H, hd, hd), f32)]
+    if direction == "backward":
+        specs = fwd_specs[:5] + [((B, H, nch, hd, hd), f32),
+                                 ((B, T, H * hd), bf), ((B, H, hd, hd), f32)]
+        call, name = wkv.wkv6_bwd_cuda, "wkv6_bwd"
+        outs = 3 * io * 2 + io * 4 + H * hd * 4 + B * H * hd * hd * 4
+        ins = 3 * io * 2 + io * 4 + H * hd * 4 + B * H * nch * hd * hd * 4 \
+            + io * 2 + B * H * hd * hd * 4
+        want = (13 * hd * hd * B * T * H, ins + outs)
+    else:
+        specs = fwd_specs
+        call, name = wkv.wkv6_cuda_saving, "wkv6"
+        want = (5 * hd * hd * B * T * H,
+                3 * io * 2 + io * 4 + H * hd * 4 + B * H * hd * hd * 4
+                + io * 2 + B * H * hd * hd * 4 + B * H * nch * hd * hd * 4)
+    mode, args = _fake_cuda(*specs)
+    before = (wkv.launches, wkv.launches_bwd)
+    with mode:
+        outs = []
+        stats = hlostats.count_step(lambda: outs.append(call(*args)))
+    g = torch.Generator().manual_seed(0)
+    real = [torch.randn(s, generator=g).to(d) for s, d in specs]
+    real[3] = torch.rand(specs[3][0], generator=g) * 0.5 + 0.4
+    plain = (wkv.wkv6_bwd_plain if direction == "backward"
+             else wkv.wkv6_plain_saving)(*real)
+    assert [(tuple(t.shape), t.dtype) for t in outs[0]] == \
+        [(tuple(t.shape), t.dtype) for t in plain]
+    assert all(t.device.type == "cuda" for t in outs[0])
+    assert dict(stats.kernel_launches) == {name: 1}
+    assert (stats.flops, stats.memory_bytes) == want
+    assert (wkv.launches, wkv.launches_bwd) == before
+
+
 # ----------------------------------------------------------------------
 # the counter on the fake backend
 # ----------------------------------------------------------------------
@@ -330,17 +380,21 @@ def test_extrapolated_depth_and_accumulation_equal_the_full_count():
 def test_dryrun_cli_writes_the_reference_keys(tmp_path):
     """``python -m repro_torch.launch.dryrun --device cpu --reduced`` on a
     decode cell in a fake world of 256 ranks writes the reference's
-    top-level keys and marks rwkv6's train cell as skipped (the card's
-    WKV6 has no backward)."""
+    top-level keys, and counts rwkv6's train cell (the WKV6 backward):
+    the CLI's main on a 64-step train cell registered beside train_4k,
+    whose 4096-step plain loops take minutes on fake CPU tensors.  On the
+    CPU the plain versions run, so no kernel is counted; on the card the
+    same cell counts WKV6's forward twice a layer and microbatch and its
+    backward once (``chip_smoke.py``'s phase 11a,
+    ``test_wkv6_training_operators_fake_and_counted_formula``)."""
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                OMP_NUM_THREADS="1")
-    for shape in ("decode_32k", "train_4k"):
-        res = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--device",
-             "cpu", "--reduced", "--arch", "rwkv6_1_6b", "--shape", shape,
-             "--out", str(tmp_path)], env=env, capture_output=True,
-            text=True, timeout=600)
-        assert res.returncode == 0, res.stderr[-3000:]
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--device",
+         "cpu", "--reduced", "--arch", "rwkv6_1_6b", "--shape",
+         "decode_32k", "--out", str(tmp_path)], env=env,
+        capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
     got = json.loads((tmp_path / "rwkv6_1_6b__decode_32k__single.json")
                      .read_text())
     assert {"arch", "shape", "mesh", "chips", "compile_s", "memory",
@@ -351,6 +405,20 @@ def test_dryrun_cli_writes_the_reference_keys(tmp_path):
     assert {"compute_s", "memory_s", "collective_s", "dominant",
             "model_flops_per_device", "useful_flops_ratio",
             "roofline_fraction"} <= set(got["roofline"])
-    skipped = json.loads((tmp_path / "rwkv6_1_6b__train_4k__single.json")
-                         .read_text())
-    assert "WKV6" in skipped["skipped"]
+    code = textwrap.dedent(f"""
+        from repro_torch.launch.dryrun import main
+        from repro_torch.models.config import SHAPES, ShapeCell
+        SHAPES["train_64"] = ShapeCell("train_64", 64, 256, "train")
+        main(["--device", "cpu", "--reduced", "--arch", "rwkv6_1_6b",
+              "--shape", "train_64", "--out", {str(tmp_path)!r}])
+    """)
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    train = json.loads((tmp_path / "rwkv6_1_6b__train_64__single.json")
+                       .read_text())
+    assert "skipped" not in train and "error" not in train
+    assert {"memory", "hlo", "roofline", "meta"} <= set(train)
+    assert train["meta"]["traced"] == ["1x1", "2x1"]
+    assert train["roofline"]["model_flops_per_device"] > 0
+    assert train["hlo"]["kernel_launches"] == {}

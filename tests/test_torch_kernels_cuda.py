@@ -210,6 +210,84 @@ def test_wkv6_kernel_refuses_what_it_does_not_take(card):
         wkv_ops.wkv6(r.half(), k.half(), v.half(), w, u, s0)
 
 
+# The backward's outputs against the plain backward, each of its own scale
+# (its largest element): bf16 dr, dk, dv rounded to bf16; float32 outputs
+# summed in another order over up to a thousand steps.
+WKV_BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+WKV_GRADS = ("dr", "dk", "dv", "dw", "du", "ds0")
+
+
+def _wkv_bwd_inputs(B, T, H, hd, dtype, device, nonzero, seed=0):
+    """The forward's inputs (a zero s0 unless ``nonzero``), dy (B, T, H *
+    hd) in ``dtype`` and dsT (None unless ``nonzero``)."""
+    args = _wkv_inputs(B, T, H, hd, dtype, device, seed)
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    dy = torch.randn((B, T, H * hd), generator=g).to(device, dtype)
+    dsT = (torch.randn((B, H, hd, hd), generator=g) * 0.1).to(device)
+    if not nonzero:
+        args[5] = torch.zeros_like(args[5])
+    return args, dy, dsT if nonzero else None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,hd,dtype,nonzero", [
+    (4, 1024, 32, 64, torch.bfloat16, False),   # rwkv6_1_6b's training
+    (2, 256, 8, 64, torch.float32, True),       # s0 and dsT
+    (1, 333, 4, 64, torch.float32, True),       # T not a multiple of 16
+    (2, 37, 4, 16, torch.bfloat16, True),       # the reduced config's hd
+    (1, 50, 2, 128, torch.bfloat16, True),
+    (2, 5, 3, 16, torch.float32, True),         # T within one chunk
+])
+def test_wkv6_backward_kernel_matches_plain(card, B, T, H, hd, dtype,
+                                            nonzero):
+    """The backward kernel against the plain backward from the same kept
+    states; the saving forward's y and sT bitwise the forward's; a second
+    backward bitwise the first."""
+    args, dy, dsT = _wkv_bwd_inputs(B, T, H, hd, dtype, card, nonzero)
+    y, sT = wkv_ops.wkv6_cuda(*args)
+    ys, sTs, states = wkv_ops.wkv6_cuda_saving(*args)
+    assert torch.equal(ys, y) and torch.equal(sTs, sT)
+    _, _, want_states = wkv_ops.wkv6_plain_saving(*args)
+    torch.testing.assert_close(states, want_states, **WKV_TOL[torch.float32])
+    before = wkv_ops.launches_bwd
+    got = wkv_ops.wkv6_bwd_cuda(*args[:5], states, dy, dsT)
+    torch.cuda.synchronize()
+    assert wkv_ops.launches_bwd == before + 1
+    want = wkv_ops.wkv6_bwd_plain(*args[:5], states, dy, dsT)
+    for name, a, b in zip(WKV_GRADS, got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        tol = WKV_BWD_TOL[a.dtype]
+        scale = float(b.float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol,
+                                   atol=tol * scale, msg=name)
+    again = wkv_ops.wkv6_bwd_cuda(*args[:5], states, dy, dsT)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.cuda
+def test_wkv6fn_on_the_card_matches_autograd_through_the_plain_loop(card):
+    """``WKV6Fn`` (the saving forward kernel, the backward kernel) against
+    autograd through the plain recurrence, each leaf's gradient within
+    WKV_BWD_TOL of its scale; one launch of each kernel."""
+    args, dy, dsT = _wkv_bwd_inputs(2, 70, 4, 64, torch.bfloat16, card, True,
+                                    seed=5)
+    leaves = [t.clone().requires_grad_(True) for t in args]
+    before = (wkv_ops.launches, wkv_ops.launches_bwd)
+    y, sT = wkv_ops.wkv6(*leaves)
+    torch.autograd.backward([y, sT], [dy, dsT])
+    assert (wkv_ops.launches, wkv_ops.launches_bwd) == (before[0] + 1,
+                                                        before[1] + 1)
+    ref = [t.clone().requires_grad_(True) for t in args]
+    yr, sTr = wkv_ops.wkv6_plain(*ref)
+    torch.autograd.backward([yr, sTr], [dy, dsT])
+    for name, a, b in zip(WKV_GRADS, leaves, ref):
+        assert a.grad.dtype == b.grad.dtype, name
+        tol = WKV_BWD_TOL[a.grad.dtype]
+        scale = float(b.grad.float().abs().max())
+        torch.testing.assert_close(a.grad.float(), b.grad.float(), rtol=tol,
+                                   atol=tol * scale, msg=name)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype", [
     ((2048, 5120), torch.bfloat16),      # qwen3_32b prefill Norm

@@ -413,30 +413,67 @@ def test_rmsnorm_on_card_goes_through_the_autograd_function():
 
 @pytest.mark.parametrize("kernel", ["flash", "wkv6"])
 def test_kernels_without_backward_raise_under_grad_on_card(kernel):
-    """A CUDA flash or WKV6 call that autograd would need a gradient of
-    raises and names ROADMAP.md; without grad it reaches the kernel."""
-    launched = []
+    """A CUDA flash call that autograd would need a gradient of raises and
+    names ROADMAP.md; without grad it reaches the kernel.  WKV6 has its
+    backward kernel: under grad a CUDA call goes through ``WKV6Fn``, which
+    launches the forward that keeps states once and, in the backward pass,
+    the backward once; no plain version runs, and the gradient is
+    autograd's through the plain loop."""
     g = torch.Generator().manual_seed(8)
     if kernel == "flash":
-        ops, name = flash_ops, "flash_attention_cuda"
+        launched = []
         args = [torch.randn(1, 8, 2, 16, generator=g) for _ in range(3)]
+        with mock.patch.object(flash_ops, "on_card", lambda t: True), \
+                mock.patch.object(flash_ops, "flash_attention_cuda",
+                                  lambda *a, **k: launched.append(1)):
+            flash_ops.flash_attention(*args)
+            assert launched == [1]
+            args[0].requires_grad_(True)
+            with pytest.raises(RuntimeError, match="ROADMAP.md"):
+                flash_ops.flash_attention(*args)
+            with torch.no_grad():
+                flash_ops.flash_attention(*args)
+        assert launched == [1, 1]
+        return
+    args = [torch.randn(1, 20, 2, 16, generator=g) for _ in range(3)] + [
+        torch.rand(1, 20, 2, 16, generator=g) * 0.5 + 0.4,
+        torch.randn(2, 16, generator=g), torch.randn(1, 2, 16, 16,
+                                                     generator=g) * 0.1]
+    gy = torch.randn(1, 20, 32, generator=g)
+    plain, plain_saving, plain_bwd = (wkv_ops.wkv6_plain,
+                                      wkv_ops.wkv6_plain_saving,
+                                      wkv_ops.wkv6_bwd_plain)
+    launched = []
 
-        def call(*a):
-            return ops.flash_attention(*a)
-    else:
-        ops, name = wkv_ops, "wkv6_cuda"
-        args = [torch.randn(1, 4, 2, 16, generator=g) for _ in range(4)] + [
-            torch.randn(2, 16, generator=g), torch.zeros(1, 2, 16, 16)]
+    def kernel_of(name, fn):
+        def run(*a):
+            launched.append(name)
+            with torch.no_grad():
+                return fn(*a)
+        return run
 
-        def call(*a):
-            return ops.wkv6(*a)
-    with mock.patch.object(ops, "on_card", lambda t: True), \
-            mock.patch.object(ops, name, lambda *a, **k: launched.append(1)):
-        call(*args)
-        assert launched == [1]
-        args[0].requires_grad_(True)
-        with pytest.raises(RuntimeError, match="ROADMAP.md"):
-            call(*args)
+    def no_plain(*a):
+        raise AssertionError("a plain WKV6 version on the card's path")
+    with mock.patch.object(wkv_ops, "on_card", lambda t: True), \
+            mock.patch.object(wkv_ops, "wkv6_cuda", kernel_of("fwd", plain)), \
+            mock.patch.object(wkv_ops, "wkv6_cuda_saving",
+                              kernel_of("fwd_save", plain_saving)), \
+            mock.patch.object(wkv_ops, "wkv6_bwd_cuda",
+                              kernel_of("bwd", plain_bwd)), \
+            mock.patch.object(wkv_ops, "wkv6_plain", no_plain), \
+            mock.patch.object(wkv_ops, "wkv6_plain_saving", no_plain), \
+            mock.patch.object(wkv_ops, "wkv6_bwd_plain", no_plain):
+        wkv_ops.wkv6(*args)
+        assert launched == ["fwd"]
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        y, _ = wkv_ops.wkv6(*leaves)
+        assert launched == ["fwd", "fwd_save"]
+        y.backward(gy)
+        assert launched == ["fwd", "fwd_save", "bwd"]
         with torch.no_grad():
-            call(*args)
-    assert launched == [1, 1]
+            wkv_ops.wkv6(*leaves)
+    assert launched == ["fwd", "fwd_save", "bwd", "fwd"]
+    ref = [a.clone().requires_grad_(True) for a in args]
+    plain(*ref)[0].backward(gy)
+    for leaf, r in zip(leaves, ref):
+        _close_scaled(leaf.grad.numpy(), r.grad.numpy(), 1e-5)
