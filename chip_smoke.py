@@ -218,9 +218,9 @@ WKV_CASES = [
 # The WKV6 kernel's instantiations: r/k/v type x head dim x with or without
 # the asynchronous copies.  ptxas must report no spill in any of them.
 WKV_KERNELS = 12
-# The WKV6 backward's: the state kernel for each r/k/v type and head dim,
-# the row kernel for each type, and du's kernel.
-WKV_BWD_KERNELS = 9
+# The WKV6 backward's: the cluster kernel for each r/k/v type, head dim and
+# with or without the asynchronous copies, and du's kernel.
+WKV_BWD_KERNELS = 13
 # (name, B, T, H, hd, dtype of r, k, v, nonzero s0 and dsT).  The first is
 # rwkv6_1_6b's training shape (phase 8d's micro-batch: B 4, seq 1024),
 # timed, with a zero s0 and no dsT as the training loss gives it.
@@ -230,6 +230,7 @@ WKV_BWD_CASES = [
     ("f32 ragged T", 1, 333, 4, 64, "float32", True),
     ("hd16 ragged", 2, 37, 4, 16, "bfloat16", True),
     ("hd128 ragged", 1, 50, 2, 128, "bfloat16", True),
+    ("f32 hd128 past a chunk", 1, 17, 2, 128, "float32", True),
 ]
 # The backward's tolerances, each of the scale of its output (its largest
 # element): bf16 dr, dk and dv are rounded to bf16 (2^-8 relative); float32
@@ -641,6 +642,12 @@ def phase_wkv6_bwd() -> dict:
             continue
         bwd = (r, k, v, w, u, states, dy, dsT)
         bwd_ms = time_ms(lambda: ops.wkv6_bwd_cuda(*bwd), iters=20)
+        # the kernel with its walk (the consumers' and the dv warp's sums),
+        # its epilogue's sums and stores, or both left out
+        parts = {name: time_ms(lambda s=skip: ops.wkv6_bwd_cuda_skipping(
+                     *bwd, s), iters=20)
+                 for name, skip in (("no_walk_ms", 1), ("no_epilogue_ms", 2),
+                                    ("staging_only_ms", 3))}
         eager_ms = time_ms(lambda: ops.wkv6_bwd_cuda(*bwd), iters=20,
                            graph=False)
         plain_ms = time_ms(lambda: ops.wkv6_bwd_plain(*bwd), iters=1,
@@ -651,7 +658,7 @@ def phase_wkv6_bwd() -> dict:
                                      dy.reshape(r.shape), dsT, got)
         timing = dict(ms=bwd_ms, eager_ms=eager_ms, plain_ms=plain_ms,
                       library_ms=None, fwd_ms=fwd_ms, fwd_saving_ms=save_ms,
-                      **bound(flops, nbytes, PEAK_F32_FLOPS))
+                      **parts, **bound(flops, nbytes, PEAK_F32_FLOPS))
         print(f"[kernels] wkv6_bwd at the training shape: kernel "
               f"{bwd_ms:.4f} ms (issued eagerly {eager_ms:.4f} ms), plain "
               f"{plain_ms:.4f} ms, library none (no PyTorch call computes "
@@ -662,6 +669,10 @@ def phase_wkv6_bwd() -> dict:
               f"({timing['bound_by']}), {timing['bound_ms'] / bwd_ms:.3f} of "
               f"it reached; the forward {fwd_ms:.4f} ms, keeping states "
               f"{save_ms:.4f} ms")
+        print(f"[kernels] wkv6_bwd parts, timed alone at the training shape: "
+              f"without the walk {parts['no_walk_ms']:.4f} ms, without the "
+              f"epilogue's sums {parts['no_epilogue_ms']:.4f} ms, staging "
+              f"and hand-overs only {parts['staging_only_ms']:.4f} ms")
     return dict(name="wkv6_bwd", route="cuda",
                 source="src/repro_torch/kernels/rwkv6/csrc/wkv6_bwd.cu",
                 replaces="src/repro/kernels/rwkv6/kernel.py:53",

@@ -21,7 +21,10 @@ through ``WKV6Fn``: the forward also keeps the state before every
 ``ref.CHUNK``-th step (``repro_torch::wkv6_fwd_save``), and the backward
 is the hand-written kernel of ``csrc/wkv6_bwd.cu``
 (``repro_torch::wkv6_bwd``), which starts each chunk of time from its kept
-state.  On a CPU tensor both directions are the plain versions
+state; a head's blocks form a thread block cluster and add their partial
+sums in shared memory.  It too stages time by ``cp.async`` when every
+input is 16-byte aligned and by plain loads otherwise (``uses_ring_bwd``).
+On a CPU tensor both directions are the plain versions
 (``ref.wkv6_ref_saving``, ``ref.wkv6_bwd_ref``).
 
 ``DTensor`` inputs run through ``local_map`` with the batch or the heads
@@ -73,10 +76,12 @@ def _bwd_library():
     global _bwd_lib
     if _bwd_lib is None:
         lib = load("wkv6_bwd")
-        lib.wkv6_bwd.restype = ctypes.c_int
-        lib.wkv6_bwd.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
-                                 + [ctypes.c_longlong] * 15
-                                 + [ctypes.c_void_p])
+        args = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
+                + [ctypes.c_longlong] * 15 + [ctypes.c_void_p])
+        for fn, extra in ((lib.wkv6_bwd, []), (lib.wkv6_bwd_uses_ring, []),
+                          (lib.wkv6_bwd_skipping, [ctypes.c_int])):
+            fn.restype = ctypes.c_int
+            fn.argtypes = args + extra
         lib.wkv6_bwd_scratch_floats.restype = ctypes.c_longlong
         lib.wkv6_bwd_scratch_floats.argtypes = [ctypes.c_int] * 4
         lib.wkv6_bwd_error_string.restype = ctypes.c_char_p
@@ -322,14 +327,10 @@ def wkv6_bwd_cuda(r, k, v, w, u, states, dy, dsT=None):
     return launch(r, k, v, w, u, states, dy, dsT)
 
 
-def _launch_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                w: torch.Tensor, u: torch.Tensor, states: torch.Tensor,
-                dy: torch.Tensor, dsT: Optional[torch.Tensor]
-                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                           torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One backward (three kernels) on checked inputs: dr, dk, dv (B, T, H,
-    hd) in r's dtype, dw (B, T, H, hd), du (H, hd), ds0 (B, H, hd, hd)."""
-    global launches_bwd
+def _bwd_args(r, k, v, w, u, states, dy, dsT):
+    """The outputs (dr, dk, dv, dw, du, ds0), the C function's arguments
+    but the stream, and the tensors those arguments point into, to be kept
+    alive until the launch; for checked CUDA inputs."""
     B, T, H, hd = r.shape
     lib = _bwd_library()
     u = u.float().contiguous()
@@ -346,15 +347,54 @@ def _launch_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             None if dsT is None else dsT.data_ptr(),
             *(t.data_ptr() for t in (dr, dk, dv, dw, du, ds0, scratch)),
             _DTYPE_CODES[r.dtype], B, T, H, hd, *_strides(r, k, v, w, dy))
+    return (dr, dk, dv, dw, du, ds0), args, (u, states, dsT, scratch)
+
+
+def _run_bwd(fn, r, args, *extra) -> None:
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
-        rc = lib.wkv6_bwd(*args, stream)
+        rc = fn(*args, stream, *extra)
     if rc != 0:
         raise RuntimeError("wkv6 backward kernel launch failed: "
-                           + lib.wkv6_bwd_error_string(rc).decode())
+                           + _bwd_library().wkv6_bwd_error_string(rc).decode())
+
+
+def uses_ring_bwd(r, k, v, w, u, states, dy, dsT=None) -> bool:
+    """Whether ``wkv6_bwd_cuda`` on these CUDA inputs stages time by
+    ``cp.async`` (every input 16-byte aligned) or by plain loads.
+    Launches nothing."""
+    dy = dy.reshape(r.shape)
+    _check_bwd_cuda(r, k, v, w, u, states, dy, dsT)
+    _, args, _alive = _bwd_args(r, k, v, w, u, states, dy, dsT)
+    return bool(_bwd_library().wkv6_bwd_uses_ring(*args, None))
+
+
+def wkv6_bwd_cuda_skipping(r, k, v, w, u, states, dy, dsT, skip: int):
+    """For timing the backward kernel's parts: one launch with its walk
+    (the consumers' recompute and walk and the dv warp's sums; ``skip``
+    1), its epilogue's sums and stores (2) or both (3) left out, every
+    hand-over still made.  Its outputs are not the gradients, and it is
+    not counted in ``launches_bwd``."""
+    dy = dy.reshape(r.shape)
+    _check_bwd_cuda(r, k, v, w, u, states, dy, dsT)
+    outs, args, _alive = _bwd_args(r, k, v, w, u, states, dy, dsT)
+    _run_bwd(_bwd_library().wkv6_bwd_skipping, r, args, skip)
+    return outs
+
+
+def _launch_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                w: torch.Tensor, u: torch.Tensor, states: torch.Tensor,
+                dy: torch.Tensor, dsT: Optional[torch.Tensor]
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One backward (two kernels) on checked inputs: dr, dk, dv (B, T, H,
+    hd) in r's dtype, dw (B, T, H, hd), du (H, hd), ds0 (B, H, hd, hd)."""
+    global launches_bwd
+    outs, args, _alive = _bwd_args(r, k, v, w, u, states, dy, dsT)
+    _run_bwd(_bwd_library().wkv6_bwd, r, args)
     with _count_lock:
         launches_bwd += 1
-    return dr, dk, dv, dw, du, ds0
+    return outs
 
 
 wkv6_bwd = torch.library.custom_op("repro_torch::wkv6_bwd", _launch_bwd,

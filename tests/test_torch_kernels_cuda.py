@@ -229,6 +229,26 @@ def _wkv_bwd_inputs(B, T, H, hd, dtype, device, nonzero, seed=0):
     return args, dy, dsT if nonzero else None
 
 
+def _wkv_bwd_check(got, want):
+    for name, a, b in zip(WKV_GRADS, got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        tol = WKV_BWD_TOL[a.dtype]
+        scale = float(b.float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol,
+                                   atol=tol * scale, msg=name)
+
+
+# The backward walks 16-step chunks (two halves of 8 a chunk) and adds a
+# head's hd / 16 column slices in a cluster of 1, 2 or 8 blocks (hd 16, 64,
+# 128): T around the chunk's edges, every head dim, both types, with and
+# without s0 and dsT.
+WKV_BWD_GRID = [(2, T, 3, hd, dtype, nonzero)
+                for T in (1, 15, 16, 17, 333, 1024)
+                for hd in (16, 64, 128)
+                for dtype in (torch.float32, torch.bfloat16)
+                for nonzero in (True, False)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,H,hd,dtype,nonzero", [
     (4, 1024, 32, 64, torch.bfloat16, False),   # rwkv6_1_6b's training
@@ -237,7 +257,7 @@ def _wkv_bwd_inputs(B, T, H, hd, dtype, device, nonzero, seed=0):
     (2, 37, 4, 16, torch.bfloat16, True),       # the reduced config's hd
     (1, 50, 2, 128, torch.bfloat16, True),
     (2, 5, 3, 16, torch.float32, True),         # T within one chunk
-])
+] + WKV_BWD_GRID)
 def test_wkv6_backward_kernel_matches_plain(card, B, T, H, hd, dtype,
                                             nonzero):
     """The backward kernel against the plain backward from the same kept
@@ -254,14 +274,61 @@ def test_wkv6_backward_kernel_matches_plain(card, B, T, H, hd, dtype,
     torch.cuda.synchronize()
     assert wkv_ops.launches_bwd == before + 1
     want = wkv_ops.wkv6_bwd_plain(*args[:5], states, dy, dsT)
-    for name, a, b in zip(WKV_GRADS, got, want):
-        assert a.dtype == b.dtype and a.shape == b.shape, name
-        tol = WKV_BWD_TOL[a.dtype]
-        scale = float(b.float().abs().max())
-        torch.testing.assert_close(a.float(), b.float(), rtol=tol,
-                                   atol=tol * scale, msg=name)
+    _wkv_bwd_check(got, want)
     again = wkv_ops.wkv6_bwd_cuda(*args[:5], states, dy, dsT)
     assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("how,ring", [("heads", True), ("padded", False),
+                                      ("offset", False)])
+def test_wkv6_backward_kernel_takes_strided_and_misaligned_inputs(
+        card, dtype, how, ring):
+    """r (and for ``offset`` dy) as views: of a larger head count (strides
+    16-byte aligned: cp.async staging), of a padded head dim (a row stride
+    that is not) or one element into a buffer (a base that is not); the
+    latter two take the same kernel with plain copies.  Bitwise the
+    contiguous inputs' gradients, and within tolerance of the plain
+    backward."""
+    B, T, H, hd = 2, 77, 4, 64
+    args, dy, dsT = _wkv_bwd_inputs(B, T, H, hd, dtype, card, True, seed=3)
+    r = args[0]
+    dy4 = dy.reshape(B, T, H, hd)
+
+    def view_of(x):
+        if how == "heads":
+            wide = torch.zeros((B, T, H + 1, hd), dtype=dtype, device=card)
+            view = wide[:, :, :H]
+        elif how == "padded":
+            wide = torch.zeros((B, T, H, hd + 2), dtype=dtype, device=card)
+            view = wide[..., :hd]
+        else:
+            flat = torch.zeros(x.numel() + 1, dtype=dtype, device=card)
+            view = flat[1:].view(x.shape)
+        view.copy_(x)
+        return view
+    rv = view_of(r)
+    dyv = view_of(dy4) if how == "offset" else dy4
+    _, _, states = wkv_ops.wkv6_cuda_saving(*args)
+    assert wkv_ops.uses_ring_bwd(rv, *args[1:5], states, dyv, dsT) == ring
+    assert wkv_ops.uses_ring_bwd(*args[:5], states, dy4, dsT)
+    got = wkv_ops.wkv6_bwd_cuda(rv, *args[1:5], states, dyv, dsT)
+    want = wkv_ops.wkv6_bwd_cuda(*args[:5], states, dy4, dsT)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    _wkv_bwd_check(got, wkv_ops.wkv6_bwd_plain(*args[:5], states, dy, dsT))
+
+
+@pytest.mark.cuda
+def test_wkv6_backward_scratch_does_not_grow_with_time(card):
+    """The backward's scratch holds du's sums, B * H * hd floats, whatever
+    T: a head's column slices are added in shared memory."""
+    lib = wkv_ops._bwd_library()
+    B, T, H, hd = 4, 1024, 32, 64
+    floats = lib.wkv6_bwd_scratch_floats(B, T, H, hd)
+    assert floats <= 4 * B * H * hd
+    assert lib.wkv6_bwd_scratch_floats(B, 16 * T, H, hd) == floats
 
 
 @pytest.mark.cuda
