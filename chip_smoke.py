@@ -3,17 +3,20 @@
 
     python3 chip_smoke.py
 
-Eleven phases, each of which raises on failure (nothing is caught):
+Twelve phases, each of which raises on failure (nothing is caught):
 
 1. build: compiles every CUDA kernel of the port from ``src/repro_torch``
    with ``nvcc`` (one process per source, all at once) into ``build/``,
-   prints ptxas's register and spill report (a spill in the WKV6 forward's
-   or backward's instantiations fails) and counts the flash library's
+   prints ptxas's register and spill report (a spill in any instantiation
+   of flash attention, the WKV6 forward or its backward, or a count of
+   them other than expected, fails) and counts the flash library's
    tensor-core instructions (HGMMA, HMMA) with ``cuobjdump -sass``;
 2. kernels: each kernel (flash attention, RMSNorm, WKV6 and its backward)
    against its plain PyTorch version on the card, at the shapes the
    serving and training phases give it and a few more (ragged lengths,
-   other head dims, T = 1, float32), with its time, the plain version's
+   other head dims, flash's hd 16 padded, T = 1, float32), with its time
+   at the serving shapes (flash also at gemma3's hd 256 and nemotron's hd
+   192 in bf16 and float32), the plain version's
    time, one PyTorch library call's time where one computes the same
    function, and the card's bound; WKV6 also at a state-carry split and a
    repeat run, both held bitwise; its backward from the states its
@@ -146,7 +149,21 @@ Eleven phases, each of which raises on failure (nothing is caught):
    counted step and of the step without the counter (ratios held in
    ``PEAK_RATIO`` and ``PEAK_RATIO_UNCOUNTED``), the step's time beside
    the counted roofline terms and its share of the bf16 peak; a plain
-   version of a kernel called on the card fails the phase.
+   version of a kernel called on the card fails the phase;
+12. configurations, in a process of its own (run right after phase 4,
+   while this process holds least on the card): ``gemma3_12b`` (12 of 48
+   layers, prompts of 2048, so its window of 1024 binds, and two global
+   layers), ``starcoder2_15b`` (8 of 40), ``nemotron_4_340b`` (2 of 96,
+   hd 192, bf16 weights) and ``dbrx_132b`` (4 of 40; 16 experts top-4) at
+   full width, f32 weights from seed 0 but nemotron's, each serving phase
+   3's 8 requests in batches of 2 with 16 new tokens: the prefill logits
+   with flash against the plain attention (float32 and bf16 activations,
+   as phase 9a), the tokens equal to a direct call under both
+   policies, the launch counts the model implies (flash a layer a batch;
+   RMSNorm for gemma3's norms and qk-norms, none for the three LayerNorm
+   configs), the parameter count, init time, tok/s, the four-lane and
+   serial walls and the peak memory; a plain version of a kernel called
+   on the card fails the phase.
 
 Each serving phase, phase 8b's and 8d's first runs and 9c's launcher run
 set every kernel's launch count to 0 just before it runs and reads the
@@ -188,22 +205,42 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}     # as tests/test_kernels.py
 # loop, over up to a thousand steps: 1e-4 absolute beside 2e-5 relative.
 WKV_ATOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
-# The kernel phase: (name, B, S, H, Hkv, hd, dtype, causal, window, softcap).
-# The first three cases are the shapes the serving phases give the kernel
-# (qwen3: GQA groups of 8; qwen2-moe: MHA, H = Hkv = 16; hymba: groups of 5
-# at hd 64 with a window of 1024 that binds at S 2048), each timed; the
-# first is the row's timing.
+# The kernel phase: (name, B, S, H, Hkv, hd, dtype, causal, window,
+# softcap, timed), where timed is the key of the case's timing in the row
+# or None.  The timed cases are the shapes the serving phases give the
+# kernel (qwen3: GQA groups of 8; qwen2-moe: MHA, H = Hkv = 16; hymba:
+# groups of 5 at hd 64 with a window of 1024 that binds at S 2048; gemma3's
+# local layers at hd 256, window 1024 at S 2048; nemotron's hd 192, groups
+# of 12) and the float32 kernel at nemotron's shape; the first is the
+# row's timing.  hd 16 is a reduced config's, padded to 64 by the wrapper.
 FLASH_CASES = [
-    ("qwen3_32b prefill", 2, 1024, 64, 8, 128, "bfloat16", True, 0, 0.0),
+    ("qwen3_32b prefill", 2, 1024, 64, 8, 128, "bfloat16", True, 0, 0.0,
+     "gqa"),
     ("qwen2_moe prefill MHA", 2, 1024, 16, 16, 128, "bfloat16", True, 0,
-     0.0),
+     0.0, "mha"),
     ("hymba_1_5b prefill window", 2, 2048, 25, 5, 64, "bfloat16", True,
-     1024, 0.0),
-    ("gemma3 local hd256", 2, 2048, 16, 8, 256, "bfloat16", True, 1024, 0.0),
-    ("softcap MQA ragged", 1, 1000, 8, 1, 64, "bfloat16", True, 0, 30.0),
-    ("f32 window ragged", 1, 333, 4, 2, 128, "float32", True, 100, 0.0),
-    ("f32 non-causal window", 2, 256, 4, 2, 64, "float32", False, 64, 20.0),
+     1024, 0.0, "hymba"),
+    ("gemma3_12b prefill local hd256", 2, 2048, 16, 8, 256, "bfloat16", True,
+     1024, 0.0, "gemma3"),
+    ("nemotron_4_340b prefill hd192", 2, 1024, 96, 8, 192, "bfloat16", True,
+     0, 0.0, "nemotron"),
+    ("nemotron_4_340b shape f32 hd192", 2, 1024, 96, 8, 192, "float32",
+     True, 0, 0.0, "nemotron_f32"),
+    ("softcap MQA ragged", 1, 1000, 8, 1, 64, "bfloat16", True, 0, 30.0,
+     None),
+    ("f32 window ragged", 1, 333, 4, 2, 128, "float32", True, 100, 0.0,
+     None),
+    ("f32 non-causal window", 2, 256, 4, 2, 64, "float32", False, 64, 20.0,
+     None),
+    ("f32 hd192 window ragged", 1, 333, 8, 2, 192, "float32", True, 100,
+     0.0, None),
+    ("padded hd16 MQA ragged", 2, 77, 4, 1, 16, "bfloat16", True, 0, 0.0,
+     None),
 ]
+# The flash library's instantiations: the float32 kernel at 4 head dims,
+# the bf16 kernel at 4 head dims with and without the softcap.  ptxas must
+# report no spill in any of them.
+FLASH_KERNELS = 12
 # (name, B, T, H, hd, dtype of r, k, v); w, u and the state are float32.
 # The first case is the prefill shape of the rwkv serving phase, the
 # second its decode step; both are timed.
@@ -414,7 +451,8 @@ def phase_build() -> dict:
         for kernel, regs, stores, loads in rows:
             print(f"[build] {lib}: {kernel}: {regs} registers, {stores} bytes "
                   f"spill stores, {loads} bytes spill loads")
-        want = {"wkv6": WKV_KERNELS, "wkv6_bwd": WKV_BWD_KERNELS}
+        want = {"wkv6": WKV_KERNELS, "wkv6_bwd": WKV_BWD_KERNELS,
+                "flash_attention": FLASH_KERNELS}
         if lib in want and text:   # "" when built by an earlier run
             spills = [r for r in rows if r[2] != "0" or r[3] != "0"]
             if len(rows) != want[lib] or spills:
@@ -440,9 +478,9 @@ def phase_flash(sass: dict) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = 0.0
-    timed = []
-    for i, (label, B, S, H, Hkv, hd, dt, causal, window,
-            softcap) in enumerate(FLASH_CASES):
+    timed = {}
+    for (label, B, S, H, Hkv, hd, dt, causal, window, softcap,
+         key) in FLASH_CASES:
         dtype = getattr(torch, dt)
         q, k, v = (torch.randn((B, S, n, hd), generator=gen, device="cuda",
                                dtype=torch.float32).to(dtype)
@@ -455,7 +493,7 @@ def phase_flash(sass: dict) -> dict:
             f"flash_attention {label}: B={B} S={S} H={H} Hkv={Hkv} hd={hd} "
             f"{dt} causal={causal} window={window} softcap={softcap}", got,
             ref, TOL[dt], TOL[dt]))
-        if i < 3:   # the serving shapes
+        if key is not None:
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             # SDPA with the same mask: is_causal without a window, else
             # the causal window as a boolean mask
@@ -471,10 +509,11 @@ def phase_flash(sass: dict) -> dict:
                     qt, kt, vt, enable_gqa=True, **lib_mask), iters=20)
             flops = 4 * B * H * hd * visible_pairs(S, causal, window)
             nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, got))
+            peak = PEAK_BF16_FLOPS if dt == "bfloat16" else PEAK_F32_FLOPS
             timing = dict(shape=label, ms=kernel_ms, eager_ms=eager_ms,
                           plain_ms=plain_ms, library_ms=library_ms,
-                          **bound(flops, nbytes, PEAK_BF16_FLOPS))
-            timed.append(timing)
+                          **bound(flops, nbytes, peak))
+            timed[key] = timing
             print(f"[kernels] flash_attention at the {label} shape: "
                   f"kernel {kernel_ms:.4f} ms (issued eagerly "
                   f"{eager_ms:.4f} ms), plain {plain_ms:.4f} ms, "
@@ -486,8 +525,9 @@ def phase_flash(sass: dict) -> dict:
                        "flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention/kernel.py:30",
                 max_abs_err=worst,
-                **{k: v for k, v in timed[0].items() if k != "shape"},
-                mha=timed[1], hymba=timed[2], bf16_kernel="flash_fwd_wgmma_kernel",
+                **{k: v for k, v in timed["gqa"].items() if k != "shape"},
+                **{k: t for k, t in timed.items() if k != "gqa"},
+                bf16_kernel="flash_fwd_wgmma_kernel",
                 f32_kernel="flash_fwd_simt_kernel", sass=sass)
 
 
@@ -874,16 +914,20 @@ def logits_by_depth(cfg, model, toks, depths, dtype, use_flash=False,
 
 
 def serve_and_check(tag: str, cfg, model, prompts, batch: int, new: int,
-                    direct, card: str, profile: bool) -> dict:
-    """Serve ``prompts`` through the scheduler with every kernel's launch
-    count set to 0 just before; returns the counts read just after.
-    Raises unless every request got ``new`` tokens, two lanes or more were
-    used, identical prompts got identical tokens and the first batch's
-    tokens equal ``direct``."""
+                    direct, card: str, profile: bool,
+                    policy: str = "parallel") -> dict:
+    """Serve ``prompts`` through the scheduler under ``policy`` with every
+    kernel's launch count set to 0 just before; returns the counts read
+    just after.  Raises unless every request got ``new`` tokens, two lanes
+    or more were used (the parallel policy), identical prompts got
+    identical tokens and the first batch's tokens equal ``direct``."""
     import numpy as np
     import torch
+    from repro_torch.core import make_scheduler
     from repro_torch.runtime import ServingEngine
-    eng = ServingEngine(cfg, model, batch_size=batch, max_new_tokens=new)
+    sched = make_scheduler("serial") if policy == "serial" else None
+    eng = ServingEngine(cfg, model, batch_size=batch, max_new_tokens=new,
+                        scheduler=sched)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()                      # count the main path only
     t0 = time.perf_counter()
@@ -901,7 +945,8 @@ def serve_and_check(tag: str, cfg, model, prompts, batch: int, new: int,
     eng.close()
 
     n_req, plen = len(prompts), len(prompts[0])
-    print(f"[{tag}] {n_req} requests, {n_req // batch} batches: wall "
+    print(f"[{tag}] {policy} policy, {n_req} requests, {n_req // batch} "
+          f"batches: wall "
           f"{wall:.4f} s, {n_req * new / wall:.2f} generated tok/s, "
           f"{n_req * (plen + new) / wall:.2f} prompt+generated tok/s, "
           f"lanes_created {stats['lanes_created']}, launches "
@@ -912,7 +957,7 @@ def serve_and_check(tag: str, cfg, model, prompts, batch: int, new: int,
                                  for r in reqs):
         raise AssertionError(f"a request came back without a ({new},) "
                              f"result")
-    if stats["lanes_created"] < 2:
+    if policy == "parallel" and stats["lanes_created"] < 2:
         raise AssertionError(f"only {stats['lanes_created']} lane(s)")
     if not np.array_equal(reqs[1].result, reqs[6].result):
         raise AssertionError("identical prompts gave different tokens")
@@ -2713,6 +2758,48 @@ HYMBA_DEPTHS = (2, 32)
 F32_LOGIT_TOL = 1e-3
 
 
+def flash_against_plain(tag: str, cfg, model, toks, depths) -> None:
+    """The prefill's logits read out after each of ``depths`` layers with
+    flash against the plain attention: with float32 activations (the
+    float32 kernel) at ``F32_LOGIT_TOL``, with bf16 ones (the served path,
+    the tensor-core kernel) at the larger of 2e-2 and the plain path's own
+    bf16 drift from float32.  An MoE model routes each token to its top-k
+    experts and drops what overflows a capacity, so a rounding difference
+    that flips one choice moves every later token of that expert; the
+    layers whose kept routed tokens differ are printed."""
+    import numpy as np
+    import torch
+    runs, kept = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for flash in (True, False):
+            aux = {} if cfg.moe is not None else None
+            runs[dtype, flash] = logits_by_depth(cfg, model, toks, depths,
+                                                 dtype, use_flash=flash,
+                                                 aux=aux)
+            if aux is not None:
+                kept[dtype, flash] = torch.stack(aux["moe_kept"]).cpu().numpy()
+    for dtype, flash in kept:
+        if flash:
+            differ = [i for i in range(cfg.n_layers) if not np.array_equal(
+                kept[dtype, True][i], kept[dtype, False][i])]
+            print(f"[{tag}] {str(dtype)[6:]} activations: layers whose "
+                  f"kept routed tokens differ between flash and plain "
+                  f"attention: {differ}")
+    for n in depths:
+        check_logits(tag, f"flash vs plain attention, {n} layers, float32 "
+                     f"activations", runs[torch.float32, True][n],
+                     runs[torch.float32, False][n], F32_LOGIT_TOL)
+        plain32 = runs[torch.float32, False][n]
+        drift = float((runs[torch.bfloat16, False][n] - plain32).abs().max()
+                      / plain32.abs().max())
+        print(f"[{tag}] plain path, {n} layers: bf16 activations drift "
+              f"{drift:.3e} of the logit scale from float32 ones")
+        check_logits(tag, f"flash vs plain attention, {n} layers, bf16 "
+                     f"activations", runs[torch.bfloat16, True][n],
+                     runs[torch.bfloat16, False][n],
+                     max(TOL["bfloat16"], drift))
+
+
 def phase_hymba(card: str, profile: bool = False) -> dict:
     """hymba_1_5b as published: 32 hybrid layers, attention (H 25, Hkv 5,
     hd 64, window 1024) through the flash kernel in parallel with Mamba
@@ -2743,26 +2830,7 @@ def phase_hymba(card: str, profile: bool = False) -> dict:
     print(f"[hymba] direct prefill and {new - 1} decode steps "
           f"{time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    runs = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        for flash in (True, False):
-            runs[dtype, flash] = logits_by_depth(cfg, model, toks,
-                                                 HYMBA_DEPTHS, dtype,
-                                                 use_flash=flash)
-    for n in HYMBA_DEPTHS:
-        check_logits("hymba", f"flash vs plain attention, {n} layers, "
-                     f"float32 activations", runs[torch.float32, True][n],
-                     runs[torch.float32, False][n], F32_LOGIT_TOL)
-        plain32 = runs[torch.float32, False][n]
-        drift = float((runs[torch.bfloat16, False][n] - plain32).abs().max()
-                      / plain32.abs().max())
-        rtol = max(TOL["bfloat16"], drift)
-        print(f"[hymba] plain path, {n} layers: bf16 activations drift "
-              f"{drift:.3e} of the logit scale from float32 ones")
-        check_logits("hymba", f"flash vs plain attention, {n} layers, bf16 "
-                     f"activations", runs[torch.bfloat16, True][n],
-                     runs[torch.bfloat16, False][n], rtol)
-    del runs
+    flash_against_plain("hymba", cfg, model, toks, HYMBA_DEPTHS)
     print(f"[hymba] logits by depth {time.perf_counter() - t0:.2f} s")
     torch.cuda.synchronize()
     peak_direct = torch.cuda.max_memory_allocated()
@@ -3555,7 +3623,119 @@ def phase_dryrun_process() -> dict:
     return json.loads(lines[-1])
 
 
+# Phase 12, in a process of its own: the four published configurations no
+# other phase serves, at full width with their depth cut, as (arch, layers
+# kept, prompt length, weight type).  gemma3 keeps 12 of 48 layers (two
+# 5:1 groups, so two global layers) with prompts of 2048, so its window of
+# 1024 binds.  nemotron keeps 2 of 96 with bf16 weights (32.7 GB): its
+# embedding and head alone are 9.44e9 parameters, and with f32 weights
+# each lane makes a bf16 copy of the 18.9 GB head at every step; on an
+# H100 80GB that ran out of memory at 2 layers (65.4 GB) and peaked at
+# 66.8 and 75.0 GiB at 1 layer, three lanes' copies at once.
+CONFIGS_ONLY = "--phase-12-process"
+CONFIG_CELLS = [("gemma3_12b", 12, 2048, "float32"),
+                ("starcoder2_15b", 8, 1024, "float32"),
+                ("nemotron_4_340b", 2, 1024, "bfloat16"),
+                ("dbrx_132b", 4, 1024, "float32")]
+
+
+def serve_config(card: str, arch: str, layers: int, plen: int,
+                 dtype: str) -> dict:
+    """One configuration at full width cut to ``layers``, with ``dtype``
+    weights: a direct call, the prefill logits with flash against the
+    plain attention (``flash_against_plain``), then the 8 requests served
+    and checked under both policies, and the launch counts the model
+    implies.  Every kernel's plain version raises meanwhile.  Returns the
+    parallel policy's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    tag = arch.split("_")[0]
+    batch, new, n_req = 2, 16, 8
+    t_cell = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with kernels_only_on_card():
+        t0 = time.perf_counter()
+        model = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda", dtype=getattr(torch, dtype))
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        print(f"[{tag}] {cfg.name} at full width (d {cfg.d_model}, H "
+              f"{cfg.n_heads}/{cfg.n_kv_heads}, hd {cfg.hd}, {cfg.norm}, "
+              f"{cfg.mlp}), {layers} layers: {n_params:,} {dtype} "
+              f"parameters ({nbytes / 1e9:.2f} GB), init "
+              f"{time.perf_counter() - t0:.2f} s")
+        prompts = make_prompts(cfg, n_req, plen)
+        toks = torch.from_numpy(np.stack(prompts[:batch])).cuda()
+        direct, _ = direct_call(cfg, model, toks, new, use_flash=True)
+        flash_against_plain(tag, cfg, model, toks, (layers,))
+        torch.cuda.synchronize()
+        peaks = [torch.cuda.max_memory_allocated()]
+        launches = serve_and_check(tag, cfg, model, prompts, batch, new,
+                                   direct, card, profile=False)
+        peaks.append(torch.cuda.max_memory_allocated())
+        serial = serve_and_check(tag, cfg, model, prompts, batch, new,
+                                 direct, card, profile=False,
+                                 policy="serial")
+        peaks.append(torch.cuda.max_memory_allocated())
+    n_batches = n_req // batch
+    # Per forward call (the prefill and each of new - 1 decode steps) with
+    # RMSNorm: ln1 and ln2 in every layer, q-norm and k-norm where the
+    # config has them, and the final norm; a LayerNorm config none.  One
+    # flash call a layer in each prefill.
+    norms = (2 + 2 * cfg.qk_norm) * layers + 1 if cfg.norm == "rmsnorm" \
+        else 0
+    want = {"flash_attention": layers * n_batches,
+            "rmsnorm": norms * new * n_batches, "wkv6": 0, "wkv6_bwd": 0}
+    expect_launches(launches, want)
+    expect_launches(serial, want)
+    print(f"[{tag}] peak device memory of the direct calls "
+          f"{peaks[0] / 2**30:.3f} GiB, of the whole cell "
+          f"{max(peaks) / 2**30:.3f} GiB ({card})")
+    del model
+    free_card(arch)
+    print(f"[{tag}] cell {time.perf_counter() - t_cell:.2f} s")
+    return launches
+
+
+def phase_configs(card: str) -> dict:
+    import torch
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    if held >= 2**30:
+        raise AssertionError("an earlier phase left over 1 GiB on the card")
+    out = {cell[0]: serve_config(card, *cell) for cell in CONFIG_CELLS}
+    print(f"[configs] phase {time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
+def phase_configs_process() -> dict:
+    """Phase 12 in a process of its own, as phases 8 to 11: returns each
+    configuration's launch counts, which the child prints on its last
+    line."""
+    cmd = [sys.executable, os.path.abspath(__file__), CONFIGS_ONLY]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    sys.stdout.write(res.stdout)
+    sys.stderr.write(res.stderr)
+    lines = res.stdout.splitlines()
+    if res.returncode != 0 or not lines or not lines[-1].startswith("{"):
+        raise AssertionError(f"phase 12 failed (exit {res.returncode})")
+    return json.loads(lines[-1])
+
+
 def main() -> int:
+    if CONFIGS_ONLY in sys.argv:
+        # Phase 12's lanes make and drop bf16 copies of f32 weights of up
+        # to GiBs at every use; with the caching allocator's fixed segments,
+        # split blocks held 10 to 15 GiB that no copy could use (nemotron
+        # with f32 weights ran out of memory so on an H100 80GB).  Set
+        # before the first CUDA allocation.
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3584,6 +3764,9 @@ def main() -> int:
     if DRYRUN_ONLY in sys.argv:         # phase 11's own process
         print(json.dumps(phase_dryrun(card)))
         return 0
+    if CONFIGS_ONLY in sys.argv:        # phase 12's own process
+        print(json.dumps(phase_configs(card)))
+        return 0
     t0 = time.perf_counter()
     sass = phase_build()
     rows = [phase_flash(sass), phase_rmsnorm(), phase_wkv6(),
@@ -3593,6 +3776,9 @@ def main() -> int:
     free_card("qwen3 serving")
     rwkv = phase_rwkv(card, profile)
     free_card("rwkv serving")
+    # before the benchsuite, which leaves about 5 GiB allocated here (C13),
+    # since nemotron's cell needs most of the card
+    configs = phase_configs_process()
     overheads = phase_benchsuite(card, profile)
     free_card("benchsuite")
     phase_analysis(card, overheads)
@@ -3619,6 +3805,8 @@ def main() -> int:
         row["launches_internvl"] = families["internvl"][name]
         row["launches_mesh"] = mesh[name]
         row["launches_dryrun_step"] = dry[name]
+        row["launches_configs"] = {arch: c[name]
+                                   for arch, c in configs.items()}
         if name == "wkv6":
             row["launches_decode"] = rwkv["wkv6_t1"]
             row["launches_prefill"] = rwkv["wkv6"] - rwkv["wkv6_t1"]

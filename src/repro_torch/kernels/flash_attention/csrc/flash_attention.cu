@@ -7,16 +7,21 @@
 //
 // What it computes, as the TPU kernel does: GQA attention forward with an
 // online softmax.  Query head h reads kv head h / (H / Hkv).  Scores are
-// q . k scaled by hd^-0.5, then an optional tanh softcap, then the causal
-// and / or sliding-window mask with the finite NEG_INF = -1e30; keys past
-// Sk get probability exactly 0.  Softmax statistics and accumulators are
-// f32; the output is written in q's dtype after dividing by max(l, 1e-30).
+// q . k times the given scale (hd^-0.5), then an optional tanh softcap,
+// then the causal and / or sliding-window mask with the finite NEG_INF =
+// -1e30; keys past Sk get probability exactly 0.  Softmax statistics and
+// accumulators are f32; the output is written in q's dtype after dividing
+// by max(l, 1e-30).
 // The TPU kernel walks k blocks as its sequential minor grid dimension with
 // (m, l, acc) in VMEM scratch; here one CTA owns a query tile and loops
 // over the k tiles itself with (m, l, acc) in registers.  k tiles wholly
 // past the causal frontier or wholly before the window are skipped (the TPU
 // kernel multiplies them by exactly 0), and the heaviest causal query tiles
 // are launched first.  The (B, S, H, hd) layout is read through strides.
+// Both kernels take hd 64, 128, 192 and 256; the wrapper (ops.py) zero-pads
+// any other hd up to 256 to the next of these and passes the scale of the
+// unpadded hd (zero columns add nothing to q . k and give zero columns of
+// the output, which it slices off).
 //
 // Two kernels, chosen by the input type (flash_attention_fwd's dtype code),
 // not as a fallback:
@@ -25,14 +30,14 @@
 //   attention at the serving shapes is operations (34 GFLOP against 75 MB
 //   at B=2, S=1024, H=64, hd=128), and only wgmma reaches the card's bf16
 //   rate.  A CTA is three warpgroups and owns (b, h, 128-query-row) items,
-//   heaviest causal tiles first; up to hd 128 it is persistent (one CTA
+//   heaviest causal tiles first; up to hd 192 it is persistent (one CTA
 //   per SM walks its items, so one item's epilogue overlaps the next one's
 //   loads).  Warpgroup 0 is the producer: one thread loads each item's
-//   query rows and then K and V tiles (128 keys up to hd 128, 64 at hd 256)
+//   query rows and then K and V tiles (128 keys up to hd 128, 64 above)
 //   into a ring of shared-memory stages with TMA (128-byte swizzle, the
 //   layout wgmma reads), each stage guarded by mbarriers (K full, V full,
 //   empty).  Warpgroups 1 and 2 each own 64 query rows; setmaxnreg moves
-//   registers from the producer to them.  Up to hd 128 a consumer takes
+//   registers from the producer to them.  Up to hd 192 a consumer takes
 //   its Q rows into registers once (ldmatrix) and frees Q's stage for the
 //   next item.  Per k tile it computes S = Q K^T with wgmma (Q from
 //   registers or shared memory, K from shared memory) into f32 registers;
@@ -254,6 +259,7 @@ int dispatch(const Params& p, int hd, cudaStream_t stream) {
   switch (hd) {
     case 64: return launch<64, 64>(p, stream);
     case 128: return launch<128, 64>(p, stream);
+    case 192: return launch<192, 64>(p, stream);
     case 256: return launch<256, 32>(p, stream);
     default: return -1;
   }
@@ -275,14 +281,21 @@ constexpr int kConsumerRegs = 240;       //   = 384 x 168 = the launch's pool
 // Tile sizes and shared memory, in 1024-byte-aligned pieces (the 128-byte
 // swizzle repeats every 1024 bytes).  Every tile is stored as hd / 64 boxes
 // of [rows][64] bf16, 128 bytes a row, as TMA writes them with the 128-byte
-// swizzle.  Up to hd 128: 128 keys per k tile, Q in registers (S, P, Q and
-// O fragments fit in 240 registers); at hd 256: 64 keys, Q read by wgmma
-// from shared memory.
+// swizzle.  Per consumer thread, O takes hd / 2 floats, Q in registers
+// hd / 4, S kBN / 2 floats and P kBN / 8 registers, of 240.  Up to hd 128:
+// 128 keys per k tile, Q in registers.  At hd 192: 64 keys, Q in registers
+// (96 + 48 + 32 + 16 = 192), so Q's stage is freed at once and the CTA
+// stays persistent (0.19 ms against 0.23 with Q read from shared memory,
+// at nemotron's prefill shape on an H100); 48 KB of Q and three stages of
+// K and V (48 KB each), 192 KB.  At hd 256: 64 keys, Q read by wgmma from
+// shared memory (Q in registers would leave 240 - 224 for the rest); 64 KB
+// of Q and two stages of 64 KB.
 template <int HD>
 struct Layout {
+  static_assert(HD % 64 == 0 && HD <= 256, "hd 64, 128, 192 or 256");
   static constexpr int kBN = HD <= 128 ? 128 : 64;
-  static constexpr bool kQReg = HD <= 128;   // Q as the register A operand
-  static constexpr int kStages = HD == 64 ? 4 : HD == 128 ? 3 : 2;
+  static constexpr bool kQReg = HD <= 192;   // Q as the register A operand
+  static constexpr int kStages = HD == 64 ? 4 : HD <= 192 ? 3 : 2;
   static constexpr uint32_t kQBox = kRows * 128;          // one 64-wide box
   static constexpr uint32_t kKVBox = kBN * 128;
   static constexpr uint32_t kTileBytes = kKVBox * (HD / 64);
@@ -313,6 +326,9 @@ template <int HD>
 __device__ __forceinline__ void issue_qk(float (&sc)[Layout<HD>::kBN / 2],
                                          uint32_t q, uint32_t k) {
   using L = Layout<HD>;
+  // Q's hd / 16 descriptors are the same at every k tile; computed anew
+  // each time, they hold no registers through the tile loop.
+  q = hopper::opaque(q);
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32u;
@@ -324,8 +340,7 @@ __device__ __forceinline__ void issue_qk(float (&sc)[Layout<HD>::kBN / 2],
   }
 }
 
-// The same with Q's A fragments in registers (loaded once by ldmatrix) and
-// 128 keys per tile.
+// The same with Q's A fragments in registers (loaded once by ldmatrix).
 template <int HD>
 __device__ __forceinline__ void issue_qk(float (&sc)[Layout<HD>::kBN / 2],
                                          const uint32_t (&qa)[HD / 16][4],
@@ -335,7 +350,10 @@ __device__ __forceinline__ void issue_qk(float (&sc)[Layout<HD>::kBN / 2],
   for (int kk = 0; kk < HD / 16; ++kk) {
     const uint64_t db = hopper::desc_sw128(
         k + (kk / 4) * L::kKVBox + (kk % 4) * 32u, 16, 1024);
-    hopper::wgmma_rs_m64n128_kmajor(sc, qa[kk], db, kk > 0);
+    if constexpr (L::kBN == 128)
+      hopper::wgmma_rs_m64n128_kmajor(sc, qa[kk], db, kk > 0);
+    else
+      hopper::wgmma_rs_m64n64_kmajor(sc, qa[kk], db, kk > 0);
   }
 }
 
@@ -352,6 +370,7 @@ __device__ __forceinline__ void issue_pv(
     const uint64_t db = hopper::desc_sw128(v + kk * 16 * 128, L::kKVBox, 1024);
     if constexpr (HD == 64) hopper::wgmma_rs_m64n64(o, pa[kk], db, 1);
     if constexpr (HD == 128) hopper::wgmma_rs_m64n128(o, pa[kk], db, 1);
+    if constexpr (HD == 192) hopper::wgmma_rs_m64n192(o, pa[kk], db, 1);
     if constexpr (HD == 256) hopper::wgmma_rs_m64n256(o, pa[kk], db, 1);
   }
 }
@@ -590,7 +609,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                k0 + BN > p.Sk;
       };
 
-      // Q: with hd <= 128 its A fragments go to registers by ldmatrix (the
+      // Q: up to hd 192 its A fragments go to registers by ldmatrix (the
       // warp's 16 rows, hd in steps of 16; lane l addresses row l % 8, + 8
       // for odd l / 8, and the step's 16-byte chunk l / 16, swizzled by the
       // row), which frees Q's shared memory for the next item at once.
@@ -800,7 +819,7 @@ int launch(const Params& p, cudaStream_t stream) {
   if (err != cudaSuccess) return int(err);
   const long long items =
       static_cast<long long>(p.B) * p.H * ((p.Sq + kRows - 1) / kRows);
-  const int grid = int(items < sms || HD == 256 ? items : sms);
+  const int grid = int(items < sms || !L::kQReg ? items : sms);
   if (grid == 0) return 0;
   flash_fwd_wgmma_kernel<HD, SOFTCAP>
       <<<grid, kThreads, smem, stream>>>(tq, tk, tv, tp);
@@ -812,6 +831,7 @@ int dispatch_hd(const Params& p, int hd, cudaStream_t stream) {
   switch (hd) {
     case 64: return launch<64, SOFTCAP>(p, stream);
     case 128: return launch<128, SOFTCAP>(p, stream);
+    case 192: return launch<192, SOFTCAP>(p, stream);
     case 256: return launch<256, SOFTCAP>(p, stream);
     default: return -1;
   }

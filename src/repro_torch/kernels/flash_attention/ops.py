@@ -5,7 +5,11 @@ A CUDA tensor goes to the hand-written Hopper kernel
 (``csrc/flash_attention.cu``), launched on the current stream — inside the
 scheduler that is the lane's stream: bfloat16 to the tensor-core kernel,
 which loads q, k and v with TMA and so needs 16-byte-aligned bases and
-(B, S, H) strides, float32 to the SIMT kernel.  A CPU tensor goes to the plain
+(B, S, H) strides, float32 to the SIMT kernel.  Both kernels take hd 64,
+128, 192 and 256 (``SUPPORTED_HEAD_DIMS``); any other hd up to 256 is
+zero-padded to the next of them inside the launch, which passes the
+unpadded hd's scale and slices the output (the kernel runs; this is no
+fallback), and a larger hd raises.  A CPU tensor goes to the plain
 PyTorch version (``ref.attention_ref``).  There is no other path: a CUDA
 input the kernel does not take raises.  The launch is the operator
 ``repro_torch::flash_attention_fwd`` (``torch.library.custom_op``), whose
@@ -27,6 +31,7 @@ import threading
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import direct_launch, is_dtensor, on_card, on_shards, refuse_grad
 from ..build import load
@@ -37,7 +42,10 @@ from .ref import attention_ref
 launches = 0
 _count_lock = threading.Lock()
 
-SUPPORTED_HEAD_DIMS = (64, 128, 256)
+# Head dims the kernels take as they are; any other up to the largest is
+# zero-padded to the next of them (``padded_head_dim``).
+SUPPORTED_HEAD_DIMS = (64, 128, 192, 256)
+MAX_HEAD_DIM = SUPPORTED_HEAD_DIMS[-1]
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
 
@@ -58,6 +66,21 @@ def _library():
     return _lib
 
 
+def padded_head_dim(hd: int) -> int:
+    """The head dim the kernel runs ``hd`` at: the least of
+    ``SUPPORTED_HEAD_DIMS`` not below it."""
+    for n in SUPPORTED_HEAD_DIMS:
+        if hd <= n:
+            return n
+    raise ValueError(f"flash_attention: the CUDA kernel takes hd up to "
+                     f"{MAX_HEAD_DIM}, got {hd}")
+
+
+def pad_head_dim(x: torch.Tensor, hdp: int) -> torch.Tensor:
+    """(B, S, H, hd) ``x`` with zero columns appended up to ``hdp``."""
+    return F.pad(x, (0, hdp - x.shape[3]))
+
+
 def _check(q, k, v) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be (B, S, H, hd)")
@@ -70,9 +93,7 @@ def _check(q, k, v) -> None:
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
         raise TypeError("flash_attention: the CUDA kernel takes float32 or "
                         f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if hd not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"flash_attention: the CUDA kernel takes hd in "
-                         f"{SUPPORTED_HEAD_DIMS}, got {hd}")
+    padded_head_dim(hd)                   # raises past MAX_HEAD_DIM
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k, v lie on different devices")
     if min(q.stride(3), k.stride(3), v.stride(3)) != 1:
@@ -116,18 +137,22 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             window: int, softcap: float) -> torch.Tensor:
-    """One launch on checked (B, S, H, hd) operands."""
+    """One launch on checked (B, S, H, hd) operands, padded on hd to the
+    kernel's next head dim where it is not one of them."""
     global launches
-    _check_tma(q, k, v)
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
-    o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    hdp = padded_head_dim(hd)
+    if hdp != hd:
+        q, k, v = (pad_head_dim(x, hdp) for x in (q, k, v))
+    _check_tma(q, k, v)
+    o = torch.empty((B, Sq, H, hdp), dtype=q.dtype, device=q.device)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            _DTYPE_CODES[q.dtype], B, H, Hkv, Sq, Sk, hd,
+            _DTYPE_CODES[q.dtype], B, H, Hkv, Sq, Sk, hdp,
             *_strides(q), *_strides(k), *_strides(v), *_strides(o),
             float(hd ** -0.5), int(causal), window, softcap, stream)
     if rc != 0:
@@ -135,7 +160,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                            + lib.flash_attention_error_string(rc).decode())
     with _count_lock:
         launches += 1
-    return o
+    return o if hdp == hd else o[..., :hd].contiguous()
 
 
 flash_attention_fwd = torch.library.custom_op(
@@ -158,13 +183,24 @@ def visible_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
+def _bytes(x, hd: int) -> int:
+    """Bytes of (B, S, H, ·) ``x`` at head dim ``hd``."""
+    return x.numel() // x.shape[3] * hd * x.element_size()
+
+
 def cost(q, k, v, causal, window, softcap, o) -> tuple:
-    """(flops, bytes) of one launch, for ``launch.hlostats``: the two
-    products of each visible pair, 4·hd a head, and q, k, v and the output
-    moved once."""
+    """(flops, bytes) of one launch, for ``launch.hlostats``, at the head
+    dim the kernel runs (``padded_head_dim``): the two products of each
+    visible pair, 4·hd a head, and q, k, v and the output moved once.  A
+    padded call adds its copies: q, k and v read and written padded, the
+    output's first hd columns read and written."""
     B, Sq, H, hd = q.shape
-    flops = 4 * B * H * hd * visible_pairs(Sq, k.shape[1], causal, window)
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, o))
+    hdp = padded_head_dim(hd)
+    flops = 4 * B * H * hdp * visible_pairs(Sq, k.shape[1], causal, window)
+    nbytes = sum(_bytes(t, hdp) for t in (q, k, v, o))
+    if hdp != hd:
+        nbytes += sum(_bytes(t, hd) + _bytes(t, hdp) for t in (q, k, v))
+        nbytes += 2 * _bytes(o, hd)
     return flops, nbytes
 
 

@@ -8,15 +8,18 @@ NEG_INF = -1e30
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                  softcap: float = 0.0):
-    """q: (B, Sq, H, hd); k/v: (B, Sk, Hkv, hd) -> (B, Sq, H, hd)."""
+                  softcap: float = 0.0, scale: float = None):
+    """q: (B, Sq, H, hd); k/v: (B, Sk, Hkv, hd) -> (B, Sq, H, hd).  Scores
+    are scaled by ``scale``, by default hd^-0.5 (a call on head dims padded
+    with zeros passes the unpadded hd's)."""
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     g = H // Hkv
     qg = q.reshape(B, Sq, Hkv, g, hd).float()
     kf = k.float()
     vf = v.float()
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg * hd ** -0.5, kf)
+    scale = hd ** -0.5 if scale is None else scale
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg * scale, kf)
     if softcap > 0:
         s = torch.tanh(s / softcap) * softcap
     q_pos = torch.arange(Sq, device=q.device)[:, None]

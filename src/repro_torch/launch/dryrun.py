@@ -17,8 +17,8 @@ datasheet constants, not measured.
 
 ``--device cuda`` (the default) makes the fake tensors CUDA tensors, so
 each kernel wrapper takes its kernel's path (its operator's fake, counted
-as one launch) and a prefill takes flash attention where the kernel takes
-the head dim, as the card's serving engine does; ``--device cpu`` takes
+as one launch) and a prefill takes flash attention (every config's head
+dim, up to 256), as the card's serving engine does; ``--device cpu`` takes
 the plain versions, as the tests do.  ``--reduced`` runs the CPU
 smoke-test configs.
 
@@ -53,7 +53,7 @@ import torch
 import torch.distributed as dist
 
 from ..configs import ARCH_IDS, cells, get_config
-from ..kernels.flash_attention.ops import SUPPORTED_HEAD_DIMS
+from ..kernels.flash_attention.ops import MAX_HEAD_DIM
 from ..models.config import SHAPES
 from ..models.transformer import layer_kinds
 from .hlostats import HLOStats, count_step, dtensor_bookkeeping, \
@@ -306,14 +306,15 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
              reduced: bool = False) -> dict:
     """One cell's JSON (the reference's keys).  ``use_flash`` defaults to
     the card's serving path (``ServingEngine``'s): flash attention in a
-    prefill on ``cuda`` where the kernel takes the head dim (not
-    nemotron's 192), the plain attention on the CPU; training never takes
-    it (the kernel has no backward)."""
+    prefill on ``cuda`` wherever the wrapper takes the head dim (up to
+    256: every config, nemotron's 192 included, and a reduced config's 16,
+    padded), the plain attention on the CPU; training never takes it (the
+    kernel has no backward)."""
     cfg = get_config(arch, reduced=reduced)
     cell = SHAPES[shape_name]
     if use_flash is None:
         use_flash = (device == "cuda" and cell.kind == "prefill"
-                     and cfg.hd in SUPPORTED_HEAD_DIMS)
+                     and cfg.hd <= MAX_HEAD_DIM)
     for c, skip in cells(arch):
         if c.name == shape_name and skip:
             return {"arch": arch, "shape": shape_name, "skipped": skip}

@@ -25,6 +25,7 @@ CASES = [
     (2, 256, 4, 2, 64, 128, 0.0),      # sliding window
     (1, 256, 4, 1, 64, 0, 30.0),       # softcap (gemma-style), MQA
     (1, 128, 2, 2, 128, 64, 20.0),     # window + softcap
+    (1, 128, 4, 2, 192, 0, 0.0),       # hd 192 (nemotron's), GQA
 ]
 
 
@@ -103,8 +104,32 @@ def test_flash_cuda_path_refuses_cpu_tensors():
     _, (q, k, v) = _inputs(1, 64, 2, 1, 64, "float32")
     with pytest.raises(ValueError, match="CUDA"):
         ops.flash_attention_cuda(q, k, v)
+    # every hd up to 256 runs (padded where it is not native); past it, none
+    _, (q, k, v) = _inputs(1, 64, 2, 1, 320, "float32")
     with pytest.raises(ValueError, match="hd"):
-        ops.flash_attention_cuda(q[..., :32], k[..., :32], v[..., :32])
+        ops.flash_attention_cuda(q, k, v)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [16, 96])
+def test_flash_head_dim_padding_matches_plain(hd, dtype):
+    """What the launch does with a head dim the kernels do not take: q, k
+    and v zero-padded to the next native hd, attention there with the
+    unpadded hd's scale, the output's first hd columns.  On the plain
+    version this equals the plain version at hd (the zero columns add
+    exactly nothing), and the JAX kernel's output."""
+    (jq, jk, jv), (q, k, v) = _inputs(2, 96, 4, 2, hd, dtype)
+    hdp = ops.padded_head_dim(hd)
+    assert hdp == {16: 64, 96: 128}[hd] and hdp in ops.SUPPORTED_HEAD_DIMS
+    padded = [ops.pad_head_dim(x, hdp) for x in (q, k, v)]
+    assert all(x.shape == (*y.shape[:3], hdp) and not x[..., hd:].any()
+               for x, y in zip(padded, (q, k, v)))
+    got = attention_ref(*padded, window=32, scale=hd ** -0.5)[..., :hd]
+    torch.testing.assert_close(got, attention_ref(q, k, v, window=32),
+                               rtol=0, atol=0)
+    want = jflash(jq, jk, jv, window=32, block_q=32, block_k=32)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **_tol(dtype))
 
 
 @pytest.mark.cuda
@@ -117,6 +142,10 @@ def test_flash_cuda_path_refuses_cpu_tensors():
     (2, 77, 4, 2, 128, 0, 0.0),        # S under one tile
     (1, 1000, 8, 8, 64, 17, 0.0),      # window under one k tile
     (1, 200, 8, 1, 256, 0, 0.0),       # hd 256, MQA
+    (2, 1024, 96, 8, 192, 0, 0.0),     # hd 192: nemotron_4_340b's prefill
+    (1, 333, 8, 1, 192, 0, 0.0),       # hd 192, MQA, ragged S
+    (2, 77, 4, 4, 16, 0, 0.0),         # hd 16 (a reduced config), padded
+    (1, 300, 6, 2, 96, 100, 0.0),      # hd 96, padded, window, ragged S
 ])
 def test_flash_cuda_kernel_matches_plain(B, S, H, Hkv, hd, window, softcap,
                                          dtype):

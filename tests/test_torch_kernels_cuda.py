@@ -46,6 +46,11 @@ def card():
     (1, 333, 8, 1, 64, True, 0, 30.0),      # softcap, MQA
     (2, 300, 4, 2, 128, False, 100, 20.0),  # non-causal window, softcap
     (1, 130, 2, 2, 256, False, 0, 0.0),     # non-causal, ragged past Sk
+    (2, 1024, 96, 8, 192, True, 0, 0.0),    # hd 192: nemotron_4_340b's prefill
+    (1, 333, 8, 1, 192, True, 0, 0.0),      # hd 192, MQA, ragged S
+    (1, 200, 4, 2, 192, False, 64, 30.0),   # hd 192, window, softcap
+    (2, 77, 4, 4, 16, True, 0, 0.0),        # hd 16 (a reduced config), padded
+    (1, 300, 6, 2, 96, True, 100, 0.0),     # hd 96, padded, window, ragged S
 ])
 def test_flash_kernel_matches_plain(card, B, S, H, Hkv, hd, causal, window,
                                     softcap, dtype):

@@ -24,7 +24,7 @@ from repro_torch.models import (attention as TA, forward_decode,
                                 init_lm, layer_kinds)
 
 TOL = dict(rtol=2e-2, atol=2e-2)
-DENSE = ["qwen3_32b", "gemma3_12b"]
+DENSE = ["qwen3_32b", "gemma3_12b", "starcoder2_15b", "nemotron_4_340b"]
 
 
 def _pair(arch):
