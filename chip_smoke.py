@@ -158,7 +158,9 @@ Twelve phases, each of which raises on failure (nothing is caught):
    full width, f32 weights from seed 0 but nemotron's, each serving phase
    3's 8 requests in batches of 2 with 16 new tokens: the prefill logits
    with flash against the plain attention (float32 and bf16 activations,
-   as phase 9a), the tokens equal to a direct call under both
+   as phase 9a; dbrx's bf16 ones held only up to the first layer whose
+   routing the two paths split, its flash shape in phase 2), the tokens
+   equal to a direct call under both
    policies, the launch counts the model implies (flash a layer a batch;
    RMSNorm for gemma3's norms and qk-norms, none for the three LayerNorm
    configs), the parameter count, init time, tok/s, the four-lane and
@@ -212,7 +214,9 @@ WKV_ATOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # groups of 5 at hd 64 with a window of 1024 that binds at S 2048; gemma3's
 # local layers at hd 256, window 1024 at S 2048; nemotron's hd 192, groups
 # of 12) and the float32 kernel at nemotron's shape; the first is the
-# row's timing.  hd 16 is a reduced config's, padded to 64 by the wrapper.
+# row's timing.  starcoder2's and dbrx's prefill shapes, which phase 12
+# serves, are held here too, untimed.  hd 16 is a reduced config's, padded
+# to 64 by the wrapper.
 FLASH_CASES = [
     ("qwen3_32b prefill", 2, 1024, 64, 8, 128, "bfloat16", True, 0, 0.0,
      "gqa"),
@@ -226,6 +230,10 @@ FLASH_CASES = [
      0, 0.0, "nemotron"),
     ("nemotron_4_340b shape f32 hd192", 2, 1024, 96, 8, 192, "float32",
      True, 0, 0.0, "nemotron_f32"),
+    ("starcoder2_15b prefill", 2, 1024, 48, 4, 128, "bfloat16", True, 0,
+     0.0, None),
+    ("dbrx_132b prefill", 2, 1024, 48, 8, 128, "bfloat16", True, 0, 0.0,
+     None),
     ("softcap MQA ragged", 1, 1000, 8, 1, 64, "bfloat16", True, 0, 30.0,
      None),
     ("f32 window ragged", 1, 333, 4, 2, 128, "float32", True, 100, 0.0,
@@ -2765,8 +2773,10 @@ def flash_against_plain(tag: str, cfg, model, toks, depths) -> None:
     the tensor-core kernel) at the larger of 2e-2 and the plain path's own
     bf16 drift from float32.  An MoE model routes each token to its top-k
     experts and drops what overflows a capacity, so a rounding difference
-    that flips one choice moves every later token of that expert; the
-    layers whose kept routed tokens differ are printed."""
+    that flips one choice moves every later token of that expert: its bf16
+    logits are held at 2e-2 only at depths up to the first layer whose kept
+    routed tokens differ between the two paths, and printed unchecked
+    deeper (the kernel itself is held at the model's shape in phase 2)."""
     import numpy as np
     import torch
     runs, kept = {}, {}
@@ -2778,6 +2788,7 @@ def flash_against_plain(tag: str, cfg, model, toks, depths) -> None:
                                                  aux=aux)
             if aux is not None:
                 kept[dtype, flash] = torch.stack(aux["moe_kept"]).cpu().numpy()
+    routed_alike = cfg.n_layers       # bf16 layers before the first split
     for dtype, flash in kept:
         if flash:
             differ = [i for i in range(cfg.n_layers) if not np.array_equal(
@@ -2785,6 +2796,8 @@ def flash_against_plain(tag: str, cfg, model, toks, depths) -> None:
             print(f"[{tag}] {str(dtype)[6:]} activations: layers whose "
                   f"kept routed tokens differ between flash and plain "
                   f"attention: {differ}")
+            if dtype == torch.bfloat16 and differ:
+                routed_alike = differ[0]
     for n in depths:
         check_logits(tag, f"flash vs plain attention, {n} layers, float32 "
                      f"activations", runs[torch.float32, True][n],
@@ -2794,10 +2807,18 @@ def flash_against_plain(tag: str, cfg, model, toks, depths) -> None:
                       / plain32.abs().max())
         print(f"[{tag}] plain path, {n} layers: bf16 activations drift "
               f"{drift:.3e} of the logit scale from float32 ones")
+        if cfg.moe is None:
+            rtol = max(TOL["bfloat16"], drift)
+        elif n <= routed_alike:
+            rtol = TOL["bfloat16"]
+        else:
+            rtol = None
+            print(f"[{tag}] {n} layers: layer {routed_alike} (from 0) "
+                  f"keeps other routed tokens with flash than with plain "
+                  f"attention in bf16, so the logits below are not held")
         check_logits(tag, f"flash vs plain attention, {n} layers, bf16 "
                      f"activations", runs[torch.bfloat16, True][n],
-                     runs[torch.bfloat16, False][n],
-                     max(TOL["bfloat16"], drift))
+                     runs[torch.bfloat16, False][n], rtol)
 
 
 def phase_hymba(card: str, profile: bool = False) -> dict:
@@ -3672,7 +3693,11 @@ def serve_config(card: str, arch: str, layers: int, plen: int,
         prompts = make_prompts(cfg, n_req, plen)
         toks = torch.from_numpy(np.stack(prompts[:batch])).cuda()
         direct, _ = direct_call(cfg, model, toks, new, use_flash=True)
-        flash_against_plain(tag, cfg, model, toks, (layers,))
+        # an MoE model's logits after every layer, so that the depths its
+        # bf16 routing leaves alike are held (flash_against_plain)
+        depths = (tuple(range(1, layers + 1)) if cfg.moe is not None
+                  else (layers,))
+        flash_against_plain(tag, cfg, model, toks, depths)
         torch.cuda.synchronize()
         peaks = [torch.cuda.max_memory_allocated()]
         launches = serve_and_check(tag, cfg, model, prompts, batch, new,
@@ -3728,14 +3753,6 @@ def phase_configs_process() -> dict:
 
 
 def main() -> int:
-    if CONFIGS_ONLY in sys.argv:
-        # Phase 12's lanes make and drop bf16 copies of f32 weights of up
-        # to GiBs at every use; with the caching allocator's fixed segments,
-        # split blocks held 10 to 15 GiB that no copy could use (nemotron
-        # with f32 weights ran out of memory so on an H100 80GB).  Set
-        # before the first CUDA allocation.
-        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
-                              "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)

@@ -8,9 +8,9 @@ which loads q, k and v with TMA and so needs 16-byte-aligned bases and
 (B, S, H) strides, float32 to the SIMT kernel.  Both kernels take hd 64,
 128, 192 and 256 (``SUPPORTED_HEAD_DIMS``); any other hd up to 256 is
 zero-padded to the next of them inside the launch, which passes the
-unpadded hd's scale and slices the output (the kernel runs; this is no
-fallback), and a larger hd raises.  A CPU tensor goes to the plain
-PyTorch version (``ref.attention_ref``).  There is no other path: a CUDA
+unpadded hd's scale and returns a view of the output's first hd columns
+(the kernel runs; this is no fallback), and a larger hd raises.  A CPU
+tensor goes to the plain PyTorch version (``ref.attention_ref``).  There is no other path: a CUDA
 input the kernel does not take raises.  The launch is the operator
 ``repro_torch::flash_attention_fwd`` (``torch.library.custom_op``), whose
 fake gives the output's shape: a fake CUDA tensor (the dry run's,
@@ -160,7 +160,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                            + lib.flash_attention_error_string(rc).decode())
     with _count_lock:
         launches += 1
-    return o if hdp == hd else o[..., :hd].contiguous()
+    return o if hdp == hd else o[..., :hd]
 
 
 flash_attention_fwd = torch.library.custom_op(
@@ -192,15 +192,14 @@ def cost(q, k, v, causal, window, softcap, o) -> tuple:
     """(flops, bytes) of one launch, for ``launch.hlostats``, at the head
     dim the kernel runs (``padded_head_dim``): the two products of each
     visible pair, 4·hd a head, and q, k, v and the output moved once.  A
-    padded call adds its copies: q, k and v read and written padded, the
-    output's first hd columns read and written."""
+    padded call adds its copies: q, k and v read and written padded (the
+    output is returned as a view of its first hd columns)."""
     B, Sq, H, hd = q.shape
     hdp = padded_head_dim(hd)
     flops = 4 * B * H * hdp * visible_pairs(Sq, k.shape[1], causal, window)
     nbytes = sum(_bytes(t, hdp) for t in (q, k, v, o))
     if hdp != hd:
         nbytes += sum(_bytes(t, hd) + _bytes(t, hdp) for t in (q, k, v))
-        nbytes += 2 * _bytes(o, hd)
     return flops, nbytes
 
 

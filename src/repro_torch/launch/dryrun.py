@@ -53,7 +53,6 @@ import torch
 import torch.distributed as dist
 
 from ..configs import ARCH_IDS, cells, get_config
-from ..kernels.flash_attention.ops import MAX_HEAD_DIM
 from ..models.config import SHAPES
 from ..models.transformer import layer_kinds
 from .hlostats import HLOStats, count_step, dtensor_bookkeeping, \
@@ -313,8 +312,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     cfg = get_config(arch, reduced=reduced)
     cell = SHAPES[shape_name]
     if use_flash is None:
-        use_flash = (device == "cuda" and cell.kind == "prefill"
-                     and cfg.hd <= MAX_HEAD_DIM)
+        use_flash = device == "cuda" and cell.kind == "prefill"
     for c, skip in cells(arch):
         if c.name == shape_name and skip:
             return {"arch": arch, "shape": shape_name, "skipped": skip}
