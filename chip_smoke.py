@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twelve phases, each of which raises on failure (nothing is caught):
+Thirteen phases, each of which raises on failure (nothing is caught):
 
 1. build: compiles every CUDA kernel of the port from ``src/repro_torch``
    with ``nvcc`` (one process per source, all at once) into ``build/``,
@@ -71,8 +71,8 @@ Twelve phases, each of which raises on failure (nothing is caught):
    job paused, resumed and cancelled, stats, drain, shutdown and
    ``jobs --audit``; then ``benchmarks/bench_daemon.py``'s ipc, spike and
    calm scenarios at their full sizes with their gates;
-8. training, in a process of its own (the earlier phases leave about 5
-   GiB allocated; the ``[memory]`` lines say after which phase), which
+8. training, in a process of its own (the ``[memory]`` lines say what
+   each earlier phase leaves allocated), which
    asserts that under 1 GiB is allocated when it starts: (a) RMSNorm's autograd function (the kernel's forward, the closed-form
    backward) at the training shapes of (b), and the chunked attention's
    backward in float32 at S 2048, against autograd through their plain
@@ -165,7 +165,29 @@ Twelve phases, each of which raises on failure (nothing is caught):
    RMSNorm for gemma3's norms and qk-norms, none for the three LayerNorm
    configs), the parameter count, init time, tok/s, the four-lane and
    serial walls and the peak memory; a plain version of a kernel called
-   on the card fails the phase.
+   on the card fails the phase;
+13. the core runtime, in a process of its own, on CUDA-stream lanes at the
+   size of phase 5's operands: (a) 32 random DAG programs
+   (``tests/_torch_core_programs.py``: 6 float32 arrays of 16 Mi
+   elements, 14 kernels of every access-mode pattern), each issued with
+   every element in flight under the parallel policy (edges, lanes,
+   events and stats equal the simulator's, one CUDA stream a lane), then
+   free-running under both policies (timed): the three runs bitwise
+   equal, numpy's values within rtol 1e-6; (b) §IV-C's host access: a
+   host read of an array another lane owns beside a 200 ms kernel
+   returns in under 20 ms, a host write to an array that kernel reads
+   waits for it; (c) the out-of-core pipeline, 8 chunks of 1 GiB (a 24
+   GiB working set, n halved until the host holds three times it)
+   through an 8 GiB budget under the parallel policy with the plan
+   optimizer, eagerly and in 3 captured episodes: right values, spills
+   and reloads, ``verify(physical=True)`` green, the card's allocation at
+   its peak within the budget and a chunk, and after each episode within
+   64 MiB of the bytes the ledger says are installed; the wall, the bytes
+   spilled and reloaded and the effective upload rate beside one pinned
+   DMA's; (d) the memory suite's concurrent sync-against-launch stress
+   and capture demotion at 64 MiB arrays; (e) eight independent matmuls
+   on the lanes, then the card back at the phase's baseline within 64
+   MiB once every scheduler is closed.
 
 Each serving phase, phase 8b's and 8d's first runs and 9c's launcher run
 set every kernel's launch count to 0 just before it runs and reads the
@@ -1089,6 +1111,9 @@ PAPER_GEOMEAN = 1.44
 # the same card, so equal but for HITS's atomic sums (tests/test_benchsuite.py
 # holds serial against parallel alike).
 BENCH_TOL = dict(rtol=1e-5, atol=1e-6)
+# The most the benchsuite phase may leave allocated once its schedulers are
+# closed and its data dropped (the IMG filter cache holds a few KiB).
+BENCH_LEFT = 2**28
 # VEC's float32 sums against float64: 1e-6 of the sum of the magnitudes
 # summed.  B&S in float64 against scipy's float64 formula.
 VEC_CLOSED_RTOL = 1e-6
@@ -2300,15 +2325,17 @@ def train_wkv6_on_card(gen) -> None:
                     tol, tol * scale)
 
 
-def free_card(after: str = "") -> None:
+def free_card(after: str = "") -> int:
     """Collects garbage and returns cached device memory; after a phase,
-    prints what the phase left allocated on the card."""
+    prints what the phase left allocated on the card.  Returns the bytes
+    allocated."""
     import torch
     gc.collect()
     torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
     if after:
-        print(f"[memory] after {after}: "
-              f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+        print(f"[memory] after {after}: {held / 2**30:.3f} GiB allocated")
+    return held
 
 
 def trainer_run(cfg, steps: int, seq: int = TRAIN_SEQ,
@@ -2705,9 +2732,9 @@ def train_cli(card: str) -> None:
 
 
 def phase_train_process(profile: bool) -> dict:
-    """Phase 8 in a process of its own, as phase 7b's daemon: the earlier
-    phases leave several GiB allocated on the card (the ``[memory]`` lines
-    say after which), and the train state needs 44 GiB beside them.
+    """Phase 8 in a process of its own, as phase 7b's daemon: the train
+    state needs 44 GiB, and a new process starts with nothing cached or
+    split on the card.
     Returns the kernels' launch counts of 8b's main path, which the child
     prints on its last line."""
     cmd = [sys.executable, os.path.abspath(__file__), TRAIN_ONLY]
@@ -3752,6 +3779,416 @@ def phase_configs_process() -> dict:
     return json.loads(lines[-1])
 
 
+# Phase 13, in a process of its own: the paper's core runtime (DAG
+# inference from access modes, lanes and events, the memory manager) on
+# CUDA-stream lanes at the sizes of phase 5's operands.  13a: the random
+# programs of tests/_torch_core_programs.py, 6 float32 arrays of 16 Mi
+# elements (64 MiB each) and 14 kernels, 32 seeds under both policies.
+CORE_ONLY = "--phase-13-process"
+CORE_SEEDS, CORE_N = 32, 1 << 24
+# 13b: the slow kernel's length, the array another lane owns, and the most
+# a host read of it may take beside the slow kernel.  The read copies the
+# whole array to pageable memory (64 MiB took 26.6 ms beside an H100 80GB
+# HBM3), so the array read is 4 MiB.
+CORE_SLOW_MS, CORE_READ_N, CORE_READ_LIMIT_S = 200.0, 1 << 20, 0.020
+# 13c: 8 chunks of 2**28 float32 (1 GiB each, a working set of 24 GiB)
+# through a budget of 8 GiB, eagerly and then in 3 captured episodes; n is
+# halved until the host holds three times the working set.
+OOC_CHUNKS, OOC_N, OOC_BUDGET, OOC_EPISODES = 8, 1 << 28, 8 << 30, 3
+# What the card may hold beyond the ledger at a quiescent point, and beyond
+# the phase's baseline once every scheduler is closed.
+CORE_SLACK = 64 << 20
+
+
+def core_programs(card: str) -> None:
+    """13a: each program three times on CUDA lanes: under the parallel
+    policy issued with every element in flight (its lanes held until the
+    last element is issued), so that its edges, lanes, events and stats
+    are the simulator's and each lane has a CUDA stream of its own; then
+    free-running under the parallel and the serial policy, timed.  All
+    three compute the same bits, and the free parallel run's values, read
+    back through the runtime, are numpy's within rtol 1e-6.  The arrays
+    start uniform and every kernel is elementwise, so numpy's program on
+    one element gives every element's value."""
+    import numpy as np
+    import torch
+    import repro_torch.api as gr
+    import _torch_core_programs as progs
+
+    # Array i starts holding i + 1; no run writes a host buffer in place
+    # (no budget, so no write-back), so the runs share these.
+    init = [np.full(CORE_N, i + 1.0, np.float32) for i in range(6)]
+
+    def run(prog, policy, held):
+        """One run: its elements, stats, lane streams, wall and the
+        arrays' values on the card (and, free parallel, on the host)."""
+        s = gr.make_scheduler(policy, device="cuda")
+        try:
+            gate = progs.hold_lanes(s, policy if held else "serial")
+            arrays = [s.array(v, name=f"a{i}") for i, v in enumerate(init)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            progs.drive(gr, s, prog, arrays, progs.KERNELS)
+            struct = progs.structure(s)
+            gate.set()
+            s.sync()
+            wall = time.perf_counter() - t0
+            stats = {k: s.stats()[k] for k in progs.STAT_KEYS}
+            streams = {st.cuda_stream for w in s.executor._lanes.values()
+                       for st in w._streams.values()}
+            on_card = [a.device if a.device is not None
+                       else torch.from_numpy(a.host).cuda() for a in arrays]
+            host = ([np.asarray(a) for a in arrays]
+                    if policy == "parallel" and not held else None)
+        finally:
+            s.close()
+        return struct, stats, streams, wall, on_card, host
+
+    run(progs.random_program(0), "parallel", False)         # warm
+    run(progs.random_program(0), "serial", False)
+    walls = {"parallel": [], "serial": []}
+    lanes, events = [], []
+    for seed in range(CORE_SEEDS):
+        prog = progs.random_program(seed)
+        held = run(prog, "parallel", True)
+        free = run(prog, "parallel", False)
+        serial = run(prog, "serial", False)
+        for tag, policy, r in (("held", "parallel", held),
+                               ("serial", "serial", serial)):
+            struct, stats, streams = r[:3]
+            want = progs.simulated(gr, policy, prog, n=CORE_N)
+            if (struct, stats) != want:
+                raise AssertionError(
+                    f"13a seed {seed} {tag}: edges, lanes or stats differ "
+                    f"from the simulator's: {stats} against {want[1]}")
+            # the serial policy runs every element on one worker and
+            # creates no lane
+            made = max(1, stats["lanes_created"])
+            if len(streams) != made:
+                raise AssertionError(f"13a seed {seed} {tag}: {len(streams)} "
+                                     f"CUDA streams for {made} lanes")
+        lanes.append(held[1]["lanes_created"])
+        events.append(held[1]["events_created"])
+        walls["parallel"].append(free[3])
+        walls["serial"].append(serial[3])
+        for i, (h, f, q) in enumerate(zip(held[4], free[4], serial[4])):
+            if not (torch.equal(h, f) and torch.equal(f, q)):
+                raise AssertionError(f"13a seed {seed}: array {i} differs "
+                                     f"between the runs")
+        want_values = progs.numpy_program(prog, n=1)
+        for i, (g, w) in enumerate(zip(free[5], want_values)):
+            gt, w0 = torch.from_numpy(g), float(w[0])
+            if not bool(((gt - w0).abs() <= 1e-6 * abs(w0)).all()):
+                raise AssertionError(f"13a seed {seed}: array {i} differs "
+                                     f"from numpy's {w0}")
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    print(f"[core] 13a {CORE_SEEDS} programs of 6 x 64 MiB arrays and 14 "
+          f"kernels: held, free parallel and serial runs bitwise equal, "
+          f"numpy's values within rtol 1e-6; the held runs' and the serial "
+          f"runs' edges, lanes, events and stats equal the simulator's; "
+          f"lanes {lanes}, events {events}")
+    print(f"[core] 13a walls, issue to sync (s): parallel "
+          f"{json.dumps(walls['parallel'])}; serial "
+          f"{json.dumps(walls['serial'])}; medians parallel "
+          f"{med['parallel']:.5f}, serial {med['serial']:.5f}, serial over "
+          f"parallel {med['serial'] / med['parallel']:.4f} ({card})")
+
+
+def core_host_access(card: str) -> None:
+    """13b: §IV-C on CUDA streams.  A lane runs a kernel of about 200 ms
+    (``torch.cuda._sleep``) that writes A and reads C; a host read of B,
+    which another lane owns, returns without waiting for it, and a host
+    write to C waits for it."""
+    import numpy as np
+    import torch
+    from repro_torch.core import function, make_scheduler
+    probe = 50_000_000
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(probe)
+    end.record()
+    end.synchronize()
+    cycles = int(probe * CORE_SLOW_MS / start.elapsed_time(end))
+
+    def slow(a, c):
+        torch.cuda._sleep(cycles)
+        return a + 1.0
+
+    s = make_scheduler("parallel", device="cuda")
+    try:
+        A = s.array(np.zeros(CORE_N, np.float32), name="A")
+        B = s.array(np.zeros(CORE_READ_N, np.float32), name="B")
+        C = s.array(np.ones(CORE_N, np.float32), name="C")
+        function(lambda a, b, c: (a, b), modes=("inout", "inout", "const"),
+                 name="upload").with_options(scheduler=s)(A, B, C)
+        s.sync()                        # all three on the card
+        slow_fn = function(slow, modes=("inout", "const"), name="slow")
+        fast_fn = function(lambda b: b + 2.0, modes=("inout",), name="fast")
+        k_slow = slow_fn.with_options(scheduler=s)(A, C)
+        k_fast = fast_fn.with_options(scheduler=s)(B)
+        if k_slow.stream == k_fast.stream:
+            raise AssertionError("13b: the two kernels share a lane")
+        t0 = time.perf_counter()
+        b0 = float(B[0])
+        t_read = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        C[0] = 7.0
+        t_write = time.perf_counter() - t0
+        a0 = float(A[0])
+        fast_fn.with_options(scheduler=s)(B)
+        s.sync()
+        t0 = time.perf_counter()
+        float(B[0])
+        t_idle = time.perf_counter() - t0
+    finally:
+        s.close()
+    print(f"[core] 13b host read of B ({CORE_READ_N * 4 >> 20} MiB) beside a "
+          f"{CORE_SLOW_MS:.0f} ms kernel on another lane: {t_read * 1e3:.3f} "
+          f"ms (with nothing running: {t_idle * 1e3:.3f} ms); host write to "
+          f"C (64 MiB), which that kernel reads: {t_write * 1e3:.3f} ms "
+          f"({card})")
+    if (b0, a0) != (2.0, 1.0):
+        raise AssertionError(f"13b: read {b0} and {a0}, want 2.0 and 1.0")
+    if t_read >= CORE_READ_LIMIT_S:
+        raise AssertionError(f"13b: the host read took {t_read * 1e3:.1f} "
+                             f"ms, waiting for another lane")
+    if t_write < 0.5 * CORE_SLOW_MS / 1e3:
+        raise AssertionError(f"13b: the host write took {t_write * 1e3:.1f} "
+                             f"ms, not waiting for the kernel reading C")
+
+
+def host_available_bytes() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise AssertionError("no MemAvailable in /proc/meminfo")
+
+
+def pinned_dma_gbs(nbytes: int) -> float:
+    """One upload of ``nbytes`` from pinned memory, timed by CUDA events,
+    as phase 5's ``upload_cost`` times its DMA: GB/s."""
+    import torch
+    x = torch.empty(nbytes // 4, dtype=torch.float32).pin_memory()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    x.to("cuda", non_blocking=True)
+    torch.cuda.synchronize()
+    start.record()
+    y = x.to("cuda", non_blocking=True)
+    end.record()
+    end.synchronize()
+    del x, y
+    return nbytes / (start.elapsed_time(end) / 1e3) / 1e9
+
+
+def core_outofcore(card: str, base: int) -> None:
+    """13c: the out-of-core pipeline at a working set three times the
+    budget, on the parallel policy with the plan optimizer, eagerly and
+    then in captured episodes: right values through the spills, the
+    ledger equal to the bytes installed and the card's allocation within
+    the budget and one chunk at every quiescent point."""
+    import concurrent.futures
+    import numpy as np
+    import torch
+    from repro_torch.benchsuite.outofcore import (build_outofcore,
+                                                  verify_outofcore,
+                                                  working_set_bytes)
+    from repro_torch.core import make_scheduler
+    from repro_torch.core.timeline import _measure, _union
+    n = OOC_N
+    avail = host_available_bytes()
+    while 3 * working_set_bytes(OOC_CHUNKS, n) > avail:
+        n //= 2
+    ws = working_set_bytes(OOC_CHUNKS, n)
+    chunk = 4 * n
+    print(f"[core] 13c host MemAvailable {avail / 2**30:.1f} GiB: chunks "
+          f"of {n} float32 ({chunk / 2**30:.3f} GiB), working set "
+          f"{ws / 2**30:.1f} GiB" + (f" (cut from n = {OOC_N})"
+                                     if n != OOC_N else ""))
+    t0 = time.perf_counter()
+    # a generator a chunk, filled in threads (numpy fills without the GIL)
+    with concurrent.futures.ThreadPoolExecutor(OOC_CHUNKS) as pool:
+        data = list(pool.map(
+            lambda ss: np.random.default_rng(ss).random(n, dtype=np.float32),
+            np.random.SeedSequence(0).spawn(OOC_CHUNKS)))
+    print(f"[core] 13c data made in {time.perf_counter() - t0:.2f} s")
+    dma = pinned_dma_gbs(chunk)
+    s = make_scheduler("parallel", device="cuda", memory_budget=OOC_BUDGET,
+                       plan_optimize=True)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        prev = {"mem_spill_bytes": 0, "mem_reload_bytes": 0}
+        for ep in range(1 + OOC_EPISODES):
+            tag = "eager" if ep == 0 else f"episode {ep}"
+            first_span = len(s.timeline.spans)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            ctx = (s.capture("ooc") if ep else contextlib.nullcontext())
+            with ctx:
+                arrays = build_outofcore(s, chunks=OOC_CHUNKS, n=n,
+                                         data=data)
+            s.sync()
+            wall = time.perf_counter() - t0
+            gc.collect()
+            held = torch.cuda.memory_allocated() - base
+            phys = sum(s.memory.physical_resident_bytes().values())
+            report = s.memory.verify(physical=True, raise_on_drift=False)
+            if not report.ok:
+                raise AssertionError(f"13c {tag}: {report}")
+            peak = torch.cuda.max_memory_allocated() - base
+            if (max(held, peak) > OOC_BUDGET + chunk
+                    or abs(held - phys) > CORE_SLACK):
+                raise AssertionError(
+                    f"13c {tag}: {held} bytes allocated ({peak} at the "
+                    f"peak), {phys} installed, budget {OOC_BUDGET}")
+            h2d = [(sp.t0, sp.t1) for sp in s.timeline.spans[first_span:]
+                   if sp.kind == "h2d"]
+            st = s.stats()
+            spill = st["mem_spill_bytes"] - prev["mem_spill_bytes"]
+            reload = st["mem_reload_bytes"] - prev["mem_reload_bytes"]
+            prev = st
+            t1 = time.perf_counter()
+            if not verify_outofcore(arrays):
+                raise AssertionError(f"13c {tag}: wrong values")
+            t_verify = time.perf_counter() - t1
+            if spill <= 0 or reload <= 0:
+                raise AssertionError(f"13c {tag}: spilled {spill} bytes, "
+                                     f"reloaded {reload}")
+            up = OOC_CHUNKS * chunk + reload
+            busy = _measure(_union(h2d))
+            print(f"[core] 13c {tag}: wall {wall:.4f} s, spilled "
+                  f"{spill / 2**30:.3f} GiB, reloaded {reload / 2**30:.3f} "
+                  f"GiB, effective H2D {up / wall / 1e9:.3f} GB/s over the "
+                  f"wall ({up / busy / 1e9 if busy else 0.0:.3f} GB/s while "
+                  f"an upload ran) against one pinned DMA of a chunk at "
+                  f"{dma:.3f} GB/s; allocated {held / 2**30:.3f} GiB, "
+                  f"installed {phys / 2**30:.3f} GiB, peak "
+                  f"{peak / 2**30:.3f} GiB, reserved "
+                  f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB; verify "
+                  f"{t_verify:.2f} s ({card})")
+            del arrays
+            gc.collect()
+        st = s.stats()
+        print(f"[core] 13c stats: spills {st['mem_spills']}, reloads "
+              f"{st['mem_reloads']}, evict blocks {st['mem_evict_blocks']}, "
+              f"plan records {st['plan_records']}, replays "
+              f"{st['plan_replays']}")
+        if st["plan_replays"] < 1:
+            raise AssertionError("13c: no captured episode replayed")
+    finally:
+        s.close()
+
+
+def core_concurrency(card: str) -> None:
+    """13d: the memory suite's concurrency cases on CUDA lanes at 64 MiB
+    arrays: four submitter threads racing a syncing one, and a host write
+    demoting a replay mid-episode."""
+    import repro_torch.api as gr
+    from repro_torch.core import make_scheduler
+    import _torch_core_programs as progs
+    chunk = 4 * CORE_N
+    t0 = time.perf_counter()
+    s = make_scheduler("parallel", num_devices=2, device="cuda",
+                       memory_budget=256 * chunk)
+    try:
+        progs.concurrent_stress(gr, s, n=CORE_N)
+        st = s.stats()
+    finally:
+        s.close()
+    print(f"[core] 13d concurrent stress: 4 threads x 12 stages of 64 MiB "
+          f"arrays against 6 racing syncs, right and conserved, lanes "
+          f"{st['lanes_created']}, {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    s = make_scheduler("parallel", device="cuda", memory_budget=64 * chunk)
+    try:
+        progs.capture_demotion(gr, s, n=CORE_N)
+        st = s.stats()
+    finally:
+        s.close()
+    print(f"[core] 13d capture demotion: replays {st['plan_replays']}, "
+          f"bits and residency in lockstep, "
+          f"{time.perf_counter() - t0:.2f} s")
+
+
+def core_closing(card: str, base: int) -> None:
+    """13e: eight independent matmuls on the lanes (each lane's stream and
+    thread get a cuBLAS workspace), then every scheduler of the phase
+    closed: the card holds what it held when the phase began."""
+    import numpy as np
+    import torch
+    from repro_torch.core import function, make_scheduler
+    mm = function(lambda a, b, o: a @ b, modes=("const", "const", "out"),
+                  name="mm", outputs=0)
+    rng = np.random.default_rng(0)
+    s = make_scheduler("parallel", device="cuda")
+    try:
+        xs = [s.array(rng.random((4096, 4096), dtype=np.float32))
+              for _ in range(16)]
+        ys = [mm.with_options(scheduler=s)(xs[i], xs[i + 1])
+              for i in range(0, 16, 2)]
+        s.sync()
+        lanes = s.stats()["lanes_created"]
+        open_bytes = torch.cuda.memory_allocated() - base
+        arrays = sum(a.nbytes for a in xs + ys)
+        y0 = np.asarray(ys[0]).copy()
+    finally:
+        s.close()
+    want = xs[0].host.astype(np.float64) @ xs[1].host.astype(np.float64)
+    err = float(np.abs(y0 - want).max() / np.abs(want).max())
+    del xs, ys, s
+    gc.collect()
+    left = torch.cuda.memory_allocated() - base
+    print(f"[core] 13e {lanes} lanes of matmuls: {open_bytes / 2**20:.1f} "
+          f"MiB allocated before close ({arrays / 2**20:.1f} MiB of arrays),"
+          f" {left / 2**20:.3f} MiB after close and collection; max err "
+          f"{err:.3e} of the largest product")
+    if err > 1e-5:
+        raise AssertionError(f"13e: matmul off by {err}")
+    if left > CORE_SLACK:
+        raise AssertionError(f"13e: {left} bytes stay allocated after the "
+                             f"phase's schedulers closed")
+
+
+def phase_core(card: str) -> dict:
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    t_phase = time.perf_counter()
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    parts = (("13a", lambda: core_programs(card)),
+             ("13b", lambda: core_host_access(card)),
+             ("13c", lambda: core_outofcore(card, base)),
+             ("13d", lambda: core_concurrency(card)),
+             ("13e", lambda: core_closing(card, base)))
+    for tag, run in parts:
+        # Retired elements hold their arrays in parent-child cycles until a
+        # collection, and each lane's stream caches its own freed blocks:
+        # an earlier part's memory counts against no later part, and cuBLAS
+        # (which allocates outside the cache) finds the card free.
+        free_card()
+        t0 = time.perf_counter()
+        run()
+        print(f"[core] {tag} {time.perf_counter() - t0:.2f} s")
+    gc.collect()
+    left = torch.cuda.memory_allocated() - base
+    if left > CORE_SLACK:
+        raise AssertionError(f"phase 13 left {left} bytes allocated")
+    print(f"[core] phase {time.perf_counter() - t_phase:.2f} s")
+    return {"left_bytes": left}
+
+
+def phase_core_process() -> dict:
+    """Phase 13 in a process of its own, as phases 8 to 12."""
+    cmd = [sys.executable, os.path.abspath(__file__), CORE_ONLY]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    sys.stdout.write(res.stdout)
+    sys.stderr.write(res.stderr)
+    lines = res.stdout.splitlines()
+    if res.returncode != 0 or not lines or not lines[-1].startswith("{"):
+        raise AssertionError(f"phase 13 failed (exit {res.returncode})")
+    return json.loads(lines[-1])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3784,6 +4221,9 @@ def main() -> int:
     if CONFIGS_ONLY in sys.argv:        # phase 12's own process
         print(json.dumps(phase_configs(card)))
         return 0
+    if CORE_ONLY in sys.argv:           # phase 13's own process
+        print(json.dumps(phase_core(card)))
+        return 0
     t0 = time.perf_counter()
     sass = phase_build()
     rows = [phase_flash(sass), phase_rmsnorm(), phase_wkv6(),
@@ -3793,11 +4233,14 @@ def main() -> int:
     free_card("qwen3 serving")
     rwkv = phase_rwkv(card, profile)
     free_card("rwkv serving")
-    # before the benchsuite, which leaves about 5 GiB allocated here (C13),
-    # since nemotron's cell needs most of the card
+    # while this process holds least on the card: nemotron's cell needs
+    # most of it
     configs = phase_configs_process()
     overheads = phase_benchsuite(card, profile)
-    free_card("benchsuite")
+    # Closed schedulers leave nothing: the lanes' cuBLAS workspaces (32 MiB
+    # a lane thread and stream that ran a matmul) go with the last one.
+    if free_card("benchsuite") > BENCH_LEFT:
+        raise AssertionError("the benchsuite left over 0.25 GiB allocated")
     phase_analysis(card, overheads)
     free_card("analysis")
     moe = phase_moe(card, profile)
@@ -3808,6 +4251,7 @@ def main() -> int:
     families = phase_families_process(profile)
     mesh = phase_mesh_process()
     dry = phase_dryrun_process()
+    phase_core_process()
     for row in rows:
         name = row["name"]
         # each kernel's main path: serving (qwen3's, rwkv6's for the WKV6

@@ -28,16 +28,19 @@ entirely the runtime's business.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..core import GrScheduler
 from ..core.frontend import function
 
 
 def _stage_fn(x, o):
-    return x * 2.0 + 1.0
+    # Written into its output: the stage needs no device memory beyond the
+    # two chunks the budget reserves for it.
+    return torch.mul(x, 2.0, out=o).add_(1.0)
 
 
 # Declared once: an elementwise streaming stage, full occupancy; per-call
@@ -53,20 +56,27 @@ def working_set_bytes(chunks: int = 8, n: int = 1 << 14) -> int:
 
 def build_outofcore(sched: GrScheduler, *, chunks: int = 8, n: int = 1 << 14,
                     cost_s: float = 1e-3, seed: int = 0,
-                    device: int = None) -> Dict[str, List]:
+                    device: int = None,
+                    data: Optional[List[np.ndarray]] = None
+                    ) -> Dict[str, List]:
     """Issue the two-pass pipeline; returns the chunk arrays for
     verification (``z[i] == 4*x[i] + 3`` elementwise).
 
     ``device`` pins every stage to one device (bypassing placement) — the
     tiered-spill benchmark uses it to keep the *compute* on the budgeted
     device so a peer-device tier competes on spill placement alone, not on
-    work stealing."""
+    work stealing.  ``data`` gives the ``chunks`` float32 input chunks of
+    ``n`` elements instead of drawing them from ``seed``: at a size of
+    gigabytes a chunk, drawing them costs more than the pipeline."""
     rng = np.random.RandomState(seed)
     stage = OOC_STAGE.with_options(scheduler=sched, cost_s=cost_s)
     if device is not None:
         stage = stage.with_options(device=device)
-    xs = [sched.array(rng.rand(n).astype(np.float32), name=f"ooc_x{i}")
-          for i in range(chunks)]
+    if data is None:
+        data = [rng.rand(n).astype(np.float32) for _ in range(chunks)]
+    if len(data) != chunks or any(d.shape != (n,) for d in data):
+        raise ValueError(f"data must be {chunks} chunks of shape ({n},)")
+    xs = [sched.array(d, name=f"ooc_x{i}") for i, d in enumerate(data)]
     ys = [stage.with_options(name=f"ooc_p1_{i}")(x)
           for i, x in enumerate(xs)]
     zs = [stage.with_options(name=f"ooc_p2_{i}")(y)
@@ -78,8 +88,17 @@ def verify_outofcore(arrays: Dict[str, List]) -> bool:
     """Host-side correctness check (real executor): reads every final
     chunk back — through any spilled host copies — and compares against
     the closed form."""
+    want = tol = None
     for x, z in zip(arrays["x"], arrays["z"]):
-        expect = np.asarray(x.host, np.float32) * 4.0 + 3.0
-        if not np.allclose(np.asarray(z), expect, rtol=1e-5, atol=1e-5):
+        got = torch.from_numpy(np.asarray(z))
+        xt = torch.from_numpy(np.asarray(x.host, np.float32))
+        if want is None or want.shape != xt.shape:
+            want, tol = torch.empty_like(xt), torch.empty_like(xt)
+        # np.allclose(z, 4x + 3, rtol=1e-5, atol=1e-5), in torch's threads
+        # and in two buffers for every chunk: at a gigabyte a chunk, fresh
+        # temporaries cost more than the arithmetic
+        torch.mul(xt, 4.0, out=want).add_(3.0)
+        torch.abs(want, out=tol).mul_(1e-5).add_(1e-5)
+        if not bool(torch.sub(got, want, out=want).abs_().le(tol).all()):
             return False
     return True

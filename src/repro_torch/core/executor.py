@@ -24,6 +24,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
+import weakref
 from collections import deque
 from dataclasses import dataclass
 from typing import Deque, Dict, List, Optional
@@ -322,9 +323,28 @@ class _LaneWorker(threading.Thread):
                 del item, element, waits
 
 
+def _release_cublas_workspaces() -> None:
+    """Frees the cuBLAS workspaces PyTorch keeps for every (cuBLAS handle,
+    stream) pair that ran a matmul: 32 MiB each on a Hopper card, held in a
+    process-wide map that nothing else ever empties.  Every lane runs on a
+    stream of its own and every lane thread holds a handle of its own, so
+    each scheduler that ran matmuls on the card added its lanes' workspaces
+    to that map for the life of the process.  The next cuBLAS call on a
+    stream allocates its workspace again."""
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+
+
 class ThreadLaneExecutor(Executor):
     concurrent_waits = True     # wait() is a pure event wait
     pause_via_gates = True      # paused elements block their lane worker
+    # Executors with lane workers on a CUDA device.  ``_lane_lock`` covers
+    # every lane's creation and the workspaces' release, which happens only
+    # once no such executor has a lane left: no lane thread can be inside
+    # cuBLAS while its workspace map is emptied.
+    _cuda_live: "weakref.WeakSet" = weakref.WeakSet()
+    _lane_lock = threading.Lock()
 
     def __init__(self, num_devices: int = 1, device: str = "cuda") -> None:
         self.device = torch.device(device)
@@ -337,6 +357,10 @@ class ThreadLaneExecutor(Executor):
         self.num_devices = max(1, num_devices)
         self._lanes: Dict[int, _LaneWorker] = {}
         self._submitted: List[ComputationalElement] = []
+        # Submitted EVICT elements not known to have finished, by the
+        # device whose memory each releases (see _evictions_before).
+        self._evicting: Dict[int, List[ComputationalElement]] = {}
+        self._evicting_lock = threading.Lock()
         self._epoch = time.perf_counter()
 
     def torch_device_for(self, element: ComputationalElement) -> torch.device:
@@ -357,8 +381,41 @@ class ThreadLaneExecutor(Executor):
     def _worker(self, lane_id: int) -> _LaneWorker:
         worker = self._lanes.get(lane_id)
         if worker is None:
-            worker = self._lanes[lane_id] = _LaneWorker(lane_id, self)
+            with ThreadLaneExecutor._lane_lock:
+                if self.device.type == "cuda":
+                    ThreadLaneExecutor._cuda_live.add(self)
+                worker = self._lanes[lane_id] = _LaneWorker(lane_id, self)
         return worker
+
+    def _evictions_before(self, element: ComputationalElement) -> list:
+        """The evictions ``element`` must wait for besides its parents.
+
+        A budget makes room for an element by evicting victims, but the
+        DAG orders an EVICT only after the victim's readers and writer,
+        not before the uploads and outputs it makes room for: left alone,
+        a lane could install them before another lane had released the
+        victims, and the device would hold up to the whole working set at
+        once.  So every element waits for the unfinished evictions
+        submitted before it on its device; an EVICT is recorded under the
+        device it releases and waits for none (its parents precede it, so
+        no wait can close a cycle)."""
+        with self._evicting_lock:
+            self._prune_evictions()
+            if element.kind is ElementKind.EVICT:
+                dev = (element.src_device if element.src_device is not None
+                       else element.device or 0)
+                self._evicting.setdefault(dev, []).append(element)
+                return []
+            return list(self._evicting.get(element.device or 0, ()))
+
+    def _prune_evictions(self) -> None:
+        """Forgets finished evictions: a finished element must not keep its
+        victim (and a tier's spool payload) reachable.  Caller holds
+        ``_evicting_lock``."""
+        for dev, pending in list(self._evicting.items()):
+            pending[:] = [e for e in pending if not e.done_event.is_set()]
+            if not pending:
+                del self._evicting[dev]
 
     def submit(self, element, lane_id, wait_parents) -> None:
         element.done_event = threading.Event()
@@ -366,7 +423,8 @@ class ThreadLaneExecutor(Executor):
         element.state = ElementState.QUEUED
         element.t_issue = self.host_now()
         self._submitted.append(element)
-        self._worker(lane_id).q.put((element, list(wait_parents)))
+        waits = list(wait_parents) + self._evictions_before(element)
+        self._worker(lane_id).q.put((element, waits))
 
     def submit_batch(self, items) -> None:
         # Pre-materialize every completion event before anything is
@@ -379,7 +437,8 @@ class ThreadLaneExecutor(Executor):
             element.t_issue = self.host_now()
         for element, lane_id, waits in items:
             self._submitted.append(element)
-            self._worker(lane_id).q.put((element, list(waits)))
+            self._worker(lane_id).q.put(
+                (element, list(waits) + self._evictions_before(element)))
 
     def is_done(self, element) -> bool:
         ev = element.done_event
@@ -406,12 +465,16 @@ class ThreadLaneExecutor(Executor):
         for e in self._submitted:
             self.wait(e)
         self._submitted.clear()
+        with self._evicting_lock:
+            self._prune_evictions()
 
     def shutdown(self) -> None:
         """Idempotent: stop every lane worker and *join* it.  Relying on
         daemon-thread teardown leaked running workers into interpreter exit
         (and kept spool-file finalizers from running deterministically);
-        after shutdown returns, no lane thread is alive."""
+        after shutdown returns, no lane thread is alive.  On CUDA the last
+        executor to shut down also releases the lanes' cuBLAS workspaces,
+        which would otherwise stay allocated for the life of the process."""
         if self.on_stall is not None:
             self.on_stall(None)   # resume paused work so workers can drain
         workers = list(self._lanes.values())
@@ -420,6 +483,13 @@ class ThreadLaneExecutor(Executor):
             w.q.put(None)         # sentinel after any queued work: drain
         for w in workers:
             w.join(timeout=5.0)
+        if self.device.type == "cuda":
+            with ThreadLaneExecutor._lane_lock:
+                live = ThreadLaneExecutor._cuda_live
+                live.discard(self)
+                if (workers and not any(w.is_alive() for w in workers)
+                        and not any(ex._lanes for ex in live)):
+                    _release_cublas_workspaces()
 
 
 # ======================================================================

@@ -32,7 +32,7 @@ import repro_torch.core as tcore
 from repro_torch.analysis import SanitizerError
 from repro_torch.analysis.sanitizer import Sanitizer, digest
 from repro_torch.core.element import ComputationalElement
-from test_torch_core import MODES, random_program
+from _torch_core_programs import MODES, random_program
 
 BF16 = np.dtype(ml_dtypes.bfloat16)
 
