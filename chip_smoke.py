@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Thirteen phases, each of which raises on failure (nothing is caught):
+Fourteen phases, each of which raises on failure (nothing is caught):
 
 1. build: compiles every CUDA kernel of the port from ``src/repro_torch``
    with ``nvcc`` (one process per source, all at once) into ``build/``,
@@ -187,11 +187,25 @@ Thirteen phases, each of which raises on failure (nothing is caught):
    DMA's; (d) the memory suite's concurrent sync-against-launch stress
    and capture demotion at 64 MiB arrays; (e) eight independent matmuls
    on the lanes, then the card back at the phase's baseline within 64
-   MiB once every scheduler is closed.
+   MiB once every scheduler is closed;
+14. the examples, in a process of its own: (a)
+   ``examples/torch_quickstart.py`` and (c) ``examples/torch_train_lm.py``
+   each run as ``python <file>`` runs it, with no flags (so on the card),
+   in a process of its own with numpy's global generator seeded 0:
+   quickstart's z within rtol 1e-4 of numpy's on the same draws, its two
+   lanes on two CUDA streams; train_lm's 30 steps, finite losses, the
+   first within 0.5 of ln(8192), RMSNorm's launches; (b)
+   ``serve_requests`` of ``examples/torch_serve_lm.py`` at the example's
+   traffic (4 request batches of 2 prompts of 32 tokens, 16 new tokens) on
+   ``gemma3_12b`` at full width cut to 12 layers and ``rwkv6_1_6b`` at full
+   width and depth, f32 weights from seed 0: four lanes on four CUDA
+   streams, the tokens equal to the serial policy's and to a direct call's,
+   RMSNorm's (gemma3) and WKV6's (rwkv6) launches as the config implies.
+   A plain version of a kernel called on the card fails each part.
 
-Each serving phase, phase 8b's and 8d's first runs and 9c's launcher run
-set every kernel's launch count to 0 just before it runs and reads the
-counts just after.
+Each serving phase, phase 8b's and 8d's first runs, 9c's launcher run and
+each run of phase 14 set every kernel's launch count to 0 just before it
+runs and read the counts just after.
 ``--profile`` adds, to each serving phase, two warm runs, the second under
 ``torch.profiler``, and runs under the serial policy; to phase 8b one
 profiled step; to each benchsuite workload, one more parallel run
@@ -4189,6 +4203,239 @@ def phase_core_process() -> dict:
     return json.loads(lines[-1])
 
 
+# Phase 14, in a process of its own: the port's examples (examples/torch_*.py)
+# on the card.  (a) and (c) run each example file as ``python <file>`` runs
+# it, in a process of its own (EXAMPLE_RUN); (b) calls serve_lm's
+# ``serve_requests`` at the example's traffic on full-width configs.
+EXAMPLES_ONLY = "--phase-14-process"
+EXAMPLE_RUN = "--phase-14-example"
+EXAMPLE_REQUESTS, EXAMPLE_BATCH, EXAMPLE_PLEN, EXAMPLE_NEW = 4, 2, 32, 16
+# (arch, layers): gemma3 at phase 12's depth, rwkv6 at full depth.
+EXAMPLE_SERVED = [("gemma3_12b", 12), ("rwkv6_1_6b", 24)]
+TRAIN_EXAMPLE_STEPS, TRAIN_EXAMPLE_VOCAB = 30, 8192
+
+
+def run_example(path: str) -> dict:
+    """The child of ``example_process``: runs ``path`` as ``python path``
+    does (as ``__main__``, no arguments), with numpy's global generator
+    seeded 0, every kernel's plain version refused and every launch count
+    set to 0 just before.  Returns the counts read just after and the CUDA
+    streams the lanes issued work on."""
+    import runpy
+
+    import numpy as np
+    from repro_torch.core import executor
+    streams = set()
+    execute = executor._LaneWorker._execute
+
+    def observed(worker, element):
+        try:
+            return execute(worker, element)
+        finally:
+            streams.update(st.cuda_stream
+                           for st in worker._streams.values())
+    executor._LaneWorker._execute = observed
+    sys.argv = [path]
+    sys.path.insert(0, os.path.dirname(path))
+    np.random.seed(0)
+    try:
+        with kernels_only_on_card():
+            reset_launches()
+            runpy.run_path(path, run_name="__main__")
+            launches = read_launches()
+    finally:
+        executor._LaneWorker._execute = execute
+    return {"launches": launches, "lane_streams": sorted(streams)}
+
+
+def example_process(card: str, name: str) -> tuple:
+    """Runs ``examples/<name>.py`` through ``run_example`` in a process of
+    its own; passes its lines through and returns them, the child's result
+    and the wall with the process start."""
+    path = os.path.join(ROOT, "examples", f"{name}.py")
+    cmd = [sys.executable, os.path.abspath(__file__), EXAMPLE_RUN, path]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=SRC),
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    sys.stdout.write(res.stdout)
+    sys.stderr.write(res.stderr)
+    lines = res.stdout.splitlines()
+    print(f"[examples] python examples/{name}.py: exit {res.returncode}, "
+          f"{wall:.2f} s with the process start ({card})")
+    if res.returncode != 0 or not lines or not lines[-1].startswith("{"):
+        raise AssertionError(f"examples/{name}.py failed on the card")
+    return lines, json.loads(lines[-1]), wall
+
+
+def example_quickstart(card: str) -> None:
+    """14a: z against numpy's on seed 0's draws; two lanes, two streams."""
+    import re
+
+    import numpy as np
+    lines, res, _ = example_process(card, "torch_quickstart")
+    out = "\n".join(lines)
+    z = float(re.search(r"^z = (\S+)$", out, re.M).group(1))
+    lanes = int(re.search(r"ran on (\d+) lanes", out).group(1))
+    rng = np.random.RandomState(0)               # np.random.seed(0)'s draws
+    x1, x2 = (rng.rand(1 << 16).astype(np.float32) for _ in range(2))
+    want = float((x1.astype(np.float64) ** 2 - x2.astype(np.float64) ** 2)
+                 .sum())
+    streams = res["lane_streams"]
+    print(f"[examples] quickstart: z {z!r} against numpy's {want!r} (rel "
+          f"{abs(z - want) / abs(want):.3e}, rtol 1e-4), {lanes} lanes on "
+          f"{len(streams)} CUDA streams ({card})")
+    if not np.isclose(z, want, rtol=1e-4):
+        raise AssertionError(f"quickstart's z {z} is not numpy's {want}")
+    if lanes != 2 or len(streams) != 2 or 0 in streams:
+        raise AssertionError(f"quickstart ran on {lanes} lanes, CUDA "
+                             f"streams {streams}: expected two of each")
+
+
+def example_serve(card: str, arch: str, layers: int) -> dict:
+    """14b: ``serve_requests`` on one configuration at full width under
+    the parallel and the serial policy, against a direct call; returns
+    the parallel run's launch counts."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_scheduler
+    from repro_torch.models import init_lm
+    spec = importlib.util.spec_from_file_location(
+        "torch_serve_lm", os.path.join(ROOT, "examples", "torch_serve_lm.py"))
+    serve_lm = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(serve_lm)
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    tag = f"examples {arch.split('_')[0]}"
+    n_req, batch, plen, new = (EXAMPLE_REQUESTS, EXAMPLE_BATCH, EXAMPLE_PLEN,
+                               EXAMPLE_NEW)
+    with kernels_only_on_card():
+        t0 = time.perf_counter()
+        model = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+        torch.cuda.synchronize()
+        print(f"[{tag}] {cfg.name} at full width, {layers} layers: "
+              f"{sum(p.numel() for p in model.parameters()):,} f32 "
+              f"parameters, init {time.perf_counter() - t0:.2f} s")
+        rng = np.random.RandomState(0)          # the example's prompts
+        prompts = [rng.randint(0, cfg.vocab, (batch, plen)).astype(np.int32)
+                   for _ in range(n_req)]
+        direct = [direct_call(cfg, model, torch.from_numpy(p).cuda(), new)[0]
+                  for p in prompts]             # also warms the card up
+        runs = {}
+        for policy in ("parallel", "serial"):
+            sched = make_scheduler(policy, device="cuda")
+            try:
+                torch.cuda.synchronize()
+                reset_launches()                # count the main path only
+                t0 = time.perf_counter()
+                toks = serve_lm.serve_requests(sched, cfg, model, prompts,
+                                               new)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = read_launches()
+                lanes = sched.streams.lanes_created
+                streams = {st.cuda_stream for w in sched.executor._lanes
+                           .values() for st in w._streams.values()}
+            finally:
+                sched.shutdown()
+            runs[policy] = (toks, launches)
+            print(f"[{tag}] serve_requests, {policy} policy: {n_req} request "
+                  f"batches of {batch} x {plen} tokens, {new} new tokens "
+                  f"each: wall {wall:.4f} s, {n_req * batch * new / wall:.2f}"
+                  f" generated tok/s, lanes {lanes} on {len(streams)} CUDA "
+                  f"streams, launches {json.dumps(launches)} ({card})")
+            if policy == "parallel" and (lanes != n_req
+                                         or len(streams) != n_req):
+                raise AssertionError(f"{lanes} lanes on {len(streams)} "
+                                     f"streams, expected {n_req} of each")
+    for policy, (toks, _) in runs.items():
+        for r, (got, want) in enumerate(zip(toks, direct)):
+            if got.shape != (batch, new) or not np.array_equal(got, want):
+                raise AssertionError(f"request {r} under the {policy} "
+                                     f"policy: {got} differ from the direct "
+                                     f"call's {want}")
+    print(f"[{tag}] the four lanes' tokens equal the serial policy's and the "
+          f"direct call's; req0 {runs['parallel'][0][0][0][:8].tolist()}")
+    # Per request batch, new forward calls (the prefill and new - 1 decode
+    # steps).  gemma3: RMSNorm for ln1, ln2, the q-norm and the k-norm of
+    # every layer and the final norm in each call; the prefill without
+    # flash, as the example calls it.  rwkv6: one WKV6 recurrence a layer in
+    # each call, new - 1 of them at T = 1; no RMSNorm (layernorm).
+    if cfg.family == "ssm":
+        want = {"wkv6": layers * new * n_req,
+                "wkv6_t1": layers * (new - 1) * n_req, "rmsnorm": 0}
+    else:
+        want = {"rmsnorm": ((2 + 2 * cfg.qk_norm) * layers + 1) * new * n_req,
+                "wkv6": 0}
+    want.update(flash_attention=0, wkv6_bwd=0)
+    for _, launches in runs.values():
+        expect_launches(launches, want)
+    del model
+    free_card(f"examples {arch}")
+    return runs["parallel"][1]
+
+
+def example_train(card: str) -> dict:
+    """14c: the train example at its defaults: finite losses, the first
+    near ln(vocab), RMSNorm's launches."""
+    import ast
+    import math
+    import re
+    lines, res, wall = example_process(card, "torch_train_lm")
+    out = "\n".join(lines)
+    losses = ast.literal_eval(re.search(r"^losses: (\[.*\])$", out,
+                                        re.M).group(1))
+    m = re.search(r"^steps=(\d+) wall=(\S+)s tokens/s=(\d+)", out, re.M)
+    launches = res["launches"]
+    print(f"[examples] train_lm: {m.group(1)} steps, wall {m.group(2)} s, "
+          f"{m.group(3)} tokens/s (the example's own clock), losses "
+          f"{losses}, launches {json.dumps(launches)} ({card})")
+    if int(m.group(1)) != TRAIN_EXAMPLE_STEPS or not losses or not all(
+            math.isfinite(x) for x in losses):
+        raise AssertionError(f"train_lm: steps {m.group(1)}, losses {losses}")
+    if abs(losses[0] - math.log(TRAIN_EXAMPLE_VOCAB)) > 0.5:
+        raise AssertionError(f"train_lm's first loss {losses[0]} is not "
+                             f"near ln({TRAIN_EXAMPLE_VOCAB})")
+    # A step of the example's 4 layers (accum 1, remat on): RMSNorm in
+    # ln1, ln2, the q-norm and the k-norm of each layer twice (the forward
+    # and its recomputation in the backward) and the final norm once.
+    expect_launches(launches, {"rmsnorm": (8 * 4 + 1) * TRAIN_EXAMPLE_STEPS,
+                               "flash_attention": 0, "wkv6": 0,
+                               "wkv6_bwd": 0})
+    return launches
+
+
+def phase_examples(card: str) -> dict:
+    t_phase = time.perf_counter()
+    out = {}
+    parts = [("14a", lambda: example_quickstart(card))]
+    parts += [(f"14b {arch}", lambda a=arch, n=n: example_serve(card, a, n))
+              for arch, n in EXAMPLE_SERVED]
+    parts.append(("14c", lambda: example_train(card)))
+    for tag, run in parts:
+        t0 = time.perf_counter()
+        out[tag] = run()
+        print(f"[examples] {tag} {time.perf_counter() - t0:.2f} s")
+    print(f"[examples] phase {time.perf_counter() - t_phase:.2f} s")
+    return {k: v for k, v in out.items() if v is not None}
+
+
+def phase_examples_process() -> dict:
+    """Phase 14 in a process of its own, as phases 8 to 13."""
+    cmd = [sys.executable, os.path.abspath(__file__), EXAMPLES_ONLY]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    sys.stdout.write(res.stdout)
+    sys.stderr.write(res.stderr)
+    lines = res.stdout.splitlines()
+    if res.returncode != 0 or not lines or not lines[-1].startswith("{"):
+        raise AssertionError(f"phase 14 failed (exit {res.returncode})")
+    return json.loads(lines[-1])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4224,6 +4471,13 @@ def main() -> int:
     if CORE_ONLY in sys.argv:           # phase 13's own process
         print(json.dumps(phase_core(card)))
         return 0
+    if EXAMPLES_ONLY in sys.argv:       # phase 14's own process
+        print(json.dumps(phase_examples(card)))
+        return 0
+    if EXAMPLE_RUN in sys.argv:         # an example of phase 14
+        print(json.dumps(run_example(
+            sys.argv[sys.argv.index(EXAMPLE_RUN) + 1])))
+        return 0
     t0 = time.perf_counter()
     sass = phase_build()
     rows = [phase_flash(sass), phase_rmsnorm(), phase_wkv6(),
@@ -4252,6 +4506,7 @@ def main() -> int:
     mesh = phase_mesh_process()
     dry = phase_dryrun_process()
     phase_core_process()
+    phase_examples_process()
     for row in rows:
         name = row["name"]
         # each kernel's main path: serving (qwen3's, rwkv6's for the WKV6

@@ -21,8 +21,6 @@ import sys
 import time
 from typing import List
 
-# The trainer is not ported yet (ROADMAP A.5); its module joins this list
-# when it is.
 _LINT_MODULES = (
     "repro_torch.benchsuite.kernels",
     "repro_torch.benchsuite.multitenant",

@@ -2,7 +2,16 @@
 ``FileStore``: the port's multi-rank code on the CPU.  The snippet sees
 ``RANK``, ``WORLD``, ``torch``, ``dist``, ``json`` and ``np`` and an
 initialised default group; rank 0's last line of output is parsed as
-JSON."""
+JSON.
+
+After the snippet every rank passes a barrier, destroys its process
+groups, then drops every name the snippet bound and collects.  A
+``DeviceMesh`` the snippet keeps holds its process group, and with it
+gloo's worker and transport threads, past ``destroy_process_group``: left
+alone they live into interpreter teardown, where a rank now and then
+aborted (``terminate called without an active exception``) after printing
+its results.  Released here, they are joined while the interpreter is
+whole."""
 import json
 import os
 import subprocess
@@ -21,8 +30,16 @@ RANK, WORLD = int(os.environ["GLOO_RANK"]), int(os.environ["GLOO_WORLD"])
 torch.set_num_threads(1)
 dist.init_process_group("gloo", rank=RANK, world_size=WORLD,
                         store=dist.FileStore(os.environ["GLOO_STORE"], WORLD))
+_PRELUDE_NAMES = set(globals()) | {"_PRELUDE_NAMES"}
 """
-_CODA = "\ndist.barrier()\ndist.destroy_process_group()\n"
+_CODA = """
+dist.barrier()
+dist.destroy_process_group()
+for _name in set(globals()) - _PRELUDE_NAMES:
+    del globals()[_name]
+import gc
+gc.collect()
+"""
 
 
 def run_gloo(code: str, world: int, timeout: float = 240) -> dict:

@@ -7,6 +7,7 @@ subprocess per rank (``_torch_gloo.run_gloo``).
   holds against the reference);
 * ``compressed_psum`` on 8 ranks: the reference's bounds, and the
   reference's own reduced values on the same input;
+* the harness's teardown: no gloo thread left at a rank's exit;
 * the elastic remesh of reduced hymba from 8 to 4 ranks;
 * the production meshes on the fake backend (256 and 512 ranks);
 * the three kernel wrappers on ``DTensor``s through ``local_map`` (the
@@ -159,6 +160,24 @@ def test_compressed_psum_error_feedback_matches_reference(tmp_path):
     assert res["err_avg"] < 0.02, res       # EF drives the average error down
     assert res["d_ref"] < 1e-6, res
     assert res["d_err"] < 1e-6, res
+
+
+def test_gloo_harness_joins_the_groups_threads_before_exit():
+    """A snippet that keeps a ``DeviceMesh`` of its groups (as the
+    compressed_psum test does) leaves no gloo thread alive when its ranks
+    reach interpreter teardown: each rank counts its threads at exit."""
+    res = run_gloo("""
+        import atexit
+        from torch.distributed.device_mesh import init_device_mesh
+        mesh = init_device_mesh("cpu", (WORLD,), mesh_dim_names=("data",))
+        t = torch.ones(4)
+        dist.all_reduce(t, group=mesh["data"].get_group())
+        live = len(os.listdir("/proc/self/task"))
+        atexit.register(lambda live=live: print(json.dumps({
+            "live": live, "at_exit": len(os.listdir("/proc/self/task"))})))
+    """, world=8)
+    assert res["live"] > 1, res         # gloo's threads, while in use
+    assert res["at_exit"] == 1, res
 
 
 def test_elastic_remesh_preserves_state():

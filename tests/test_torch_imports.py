@@ -1,6 +1,7 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package, and no entry point quietly runs on the CPU
-when it was not asked to."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py``, the port's
+examples (``examples/torch_*.py``) and scripts (``scripts/torch_*.py``)
+import neither JAX nor the JAX package, and no entry point quietly runs on
+the CPU when it was not asked to."""
 import ast
 import os
 import pathlib
@@ -29,7 +30,9 @@ NEW_MODULES = tuple(f"repro_torch.daemon.{m}" for m in (
 
 
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("torch_*.py"))
+            + sorted((ROOT / "scripts").glob("torch_*.py")))
 
 
 def test_importing_every_port_module_loads_no_jax_and_no_repro():
