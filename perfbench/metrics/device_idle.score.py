@@ -1,0 +1,9 @@
+"""Device (H100): the share in % of the traced cycle's steady part in
+which no operation ran on the card."""
+
+
+def read(ctx):
+    tr = ctx.trace
+    if tr is None or tr.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - tr.busy_s / tr.window_s)
