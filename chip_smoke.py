@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Fourteen phases, each of which raises on failure (nothing is caught):
+Fifteen phases, each of which raises on failure (nothing is caught):
 
 1. build: compiles every CUDA kernel of the port from ``src/repro_torch``
    with ``nvcc`` (one process per source, all at once) into ``build/``,
@@ -201,7 +201,20 @@ Fourteen phases, each of which raises on failure (nothing is caught):
    width and depth, f32 weights from seed 0: four lanes on four CUDA
    streams, the tokens equal to the serial policy's and to a direct call's,
    RMSNorm's (gemma3) and WKV6's (rwkv6) launches as the config implies.
-   A plain version of a kernel called on the card fails each part.
+   A plain version of a kernel called on the card fails each part;
+15. the program's spans, in a process of its own, on the traffic of the
+   benchmark's cell ``rwkv6.score_long`` (two engines on one scheduler,
+   built, warmed and settled as ``perfbench/harness.py`` does): (a)
+   windows of 8 s with ``trace`` off, on, on, off, twice: tokens/s of each, the
+   cost of keeping span records, each layer span's count and mean, and
+   the benchmark's five readers of them; (b) host less device clock
+   between two anchor readings across the windows; (c) one cycle traced
+   under ``torch.profiler``: each element's device interval against the
+   first and last device operation that its lane's thread issued inside
+   its ``lane.issue`` (by the runtime calls' correlation ids), within 50
+   us, and the Timeline's Chrome export laid over the profiler's in one
+   file (``--phase-15-out DIR``, default ``build/trace/``:
+   ``overlay.json.gz``).
 
 Each serving phase, phase 8b's and 8d's first runs, 9c's launcher run and
 each run of phase 14 set every kernel's launch count to 0 just before it
@@ -4436,6 +4449,309 @@ def phase_examples_process() -> dict:
     return json.loads(lines[-1])
 
 
+# Phase 15, in a process of its own: the program's layer spans and its
+# device-timed lanes (core/timeline.py, core/executor.py) on the card, over
+# the traffic of the benchmark's cell rwkv6.score_long (perfbench/).
+TRACE_ONLY = "--phase-15-process"
+TRACE_OUT = "--phase-15-out"          # then a directory (build/trace)
+TRACE_CELL, TRACE_SEED = "rwkv6.score_long", 2_718_281_828
+TRACE_WINDOW_S = 8.0
+TRACE_TOL_US = 50.0
+MARKER_CYCLES = 200_000                # a marker kernel of about 0.1 ms
+TRACE_SPANS = ("serve.flush", "serve.issue", "serve.collect", "sched.launch",
+               "lane.wait", "lane.issue", "lane.sync")
+GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def trace_clients(seed: int):
+    """The cell's engines on one scheduler, built by
+    ``perfbench.harness.build``, warmed and settled as its runs are:
+    (cell, cfg, scheduler, clients)."""
+    import torch
+    sys.path.insert(0, ROOT)
+    from perfbench import generator, harness
+    cell = harness.resolve(TRACE_CELL)
+    dev = torch.device("cuda")
+    cfg, sched, clients = harness.build(cell, seed, dev)
+    clients.warm(generator.warmup_batches(cell.mix, cfg.vocab, seed))
+    harness.settle(clients, lambda first: generator.batches(
+        cell.mix, cfg.vocab, seed, first, stream=3),
+        lambda: torch.cuda.memory_reserved(dev))
+    torch.cuda.synchronize()
+    return cell, cfg, sched, clients
+
+
+def overlay_check(events, lane_tids: dict, marker_ends=()) -> dict:
+    """Each element span of a Timeline laid over a profiler's trace
+    (``Timeline.to_chrome_trace(profiler_trace=...)``'s events, in record
+    order), between the first and the last ``phase15.clock`` mark where
+    there are any, against the device operations its lane's thread
+    issued: those correlated with the runtime calls made on that thread
+    (``lane_tids``: lane -> the ids the thread may go by in the profiler's
+    trace) inside the element's ``lane.issue``.
+
+    The profiler's device clock may drift from its host clock (by 1.6 and
+    by 660 parts per million in two traced cycles on the H100's machine),
+    so where ``marker_ends`` gives the
+    ends of the trace's ``spin_kernel`` launches on the program's clock
+    (in the file's microseconds, timed with CUDA events), the device
+    operations' times are first mapped through the line those markers
+    draw.  Returns, for each matched element, ``(name, lane, start less
+    first operation, end less last operation, host gap from its start
+    event's record to its first launch, host gap from its last launch to
+    its completion event's record, whether that record came before the
+    last operation ended)``, times in microseconds; the elements left
+    unmatched, the clock marks, the markers' line, and what the matching
+    saw."""
+    from repro_torch.core.timeline import LANE_THREAD_ROW, TIMELINE_PID
+    gpu, calls, marks, spins = {}, {}, [], []
+    for e in events:
+        if e.get("ph") != "X" or e.get("pid") == TIMELINE_PID:
+            continue
+        args = e.get("args", {})
+        if e.get("name") == "phase15.clock":
+            marks.append(float(e["ts"]))
+        if "correlation" not in args:
+            continue
+        if e.get("cat") in GPU_CATS:
+            span = (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+            gpu.setdefault(args["correlation"], []).append(span)
+            if "spin_kernel" in e.get("name", ""):
+                spins.append(span[1])
+        elif e.get("cat") in ("cuda_runtime", "cuda_driver"):
+            calls.setdefault(e["tid"], []).append(
+                (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+                 args["correlation"], e.get("name", "")))
+    rate, offset = 1.0, 0.0
+    spins.sort()
+    if len(marker_ends) >= 2 and len(spins) == len(marker_ends):
+        rate = (marker_ends[-1] - marker_ends[0]) / (spins[-1] - spins[0])
+        offset = marker_ends[0] - rate * spins[0]
+    out, bare, issue = [], [], {}
+    lo, hi = (marks[0], marks[-1]) if marks else (-1e300, 1e300)
+    for e in events:
+        if e.get("pid") != TIMELINE_PID or e.get("ph") != "X" \
+                or not lo <= e["ts"] <= hi:
+            continue
+        if e["name"] == "lane.issue":
+            issue[e["tid"] - LANE_THREAD_ROW] = e
+        elif e["cat"] in ("compute", "h2d", "d2h", "d2d") and \
+                0 <= e["tid"] < LANE_THREAD_ROW:
+            lane, isp = e["tid"], issue[e["tid"]]
+            a, b = isp["ts"], isp["ts"] + isp["dur"]
+            mine = sorted(c for tid in lane_tids[lane]
+                          for c in calls.get(tid, ()) if a <= c[0] <= b)
+            launches = [c for c in mine if c[2] in gpu]
+            ops = [op for c in launches for op in gpu[c[2]]]
+            if not ops:
+                bare.append((e["name"], e["cat"], lane))
+                continue
+            records = [c for c in mine if c[3].startswith("cudaEventRecord")]
+            first = rate * min(o[0] for o in ops) + offset
+            last = rate * max(o[1] for o in ops) + offset
+            out.append((e["name"], lane, e["ts"] - first,
+                        e["ts"] + e["dur"] - last,
+                        launches[0][0] - records[0][1],
+                        records[-1][0] - launches[-1][1],
+                        records[-1][1] < last))
+    return {"matched": out, "bare": bare, "marks": marks,
+            "line": (1e6 * (rate - 1.0), offset, len(spins)),
+            "runtime_tids": sorted(calls),
+            "gpu_ops": sum(map(len, gpu.values()))}
+
+
+def phase_trace(card: str, out_dir: str) -> dict:
+    """(a) the cost of ``trace=True`` in tokens/s: windows of
+    ``TRACE_WINDOW_S`` with it off, on, on, off, twice, on one scheduler,
+    and the seven span aggregates and two counters over them, read by the
+    benchmark's readers; (b) host and device clocks across the windows,
+    through two anchor readings; (c) one traced cycle under
+    ``torch.profiler``: every element's device interval holding its
+    device operations in the profiler's trace, to ``TRACE_TOL_US``, and
+    ending within it of the last where the device still ran the element
+    when its completion event was recorded; the Timeline's Chrome export
+    laid over the profiler's in one file (``out_dir``/overlay.json.gz)."""
+    import gzip
+    import shutil
+    import statistics
+    import types
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from perfbench import generator, harness
+    from repro_torch.core.executor import ANCHOR_PERIOD_S, anchor_reading
+    from repro_torch.core.timeline import TIMELINE_PID
+    t_phase = time.perf_counter()
+    cell, cfg, sched, clients = trace_clients(TRACE_SEED)
+    mix, tl, ex = cell.mix, sched.timeline, sched.executor
+    side = torch.cuda.Stream(priority=-1)
+    first = anchor_reading(side, ex.host_now)
+    cycle, rates = 0, []
+    stats_open = sched.stats()
+    for on in (False, True, True, False) * 2:
+        tl.trace = on
+        win = clients.run(generator.batches(mix, cfg.vocab, TRACE_SEED,
+                                            cycle), TRACE_WINDOW_S)
+        cycle = win.records[-1].batch.cycle + 1
+        rates.append((on, win.rate))
+        print(f"[trace] 15a trace={on}: {win.rate:.1f} tokens/s over "
+              f"{win.seconds:.2f} s ({card})")
+    stats_close = sched.stats()
+    last = anchor_reading(side, ex.host_now)
+    off = statistics.mean(r for on, r in rates if not on)
+    on_ = statistics.mean(r for on, r in rates if on)
+    cost = 100.0 * (off - on_) / off
+    ctx = types.SimpleNamespace(stats_open=stats_open,
+                                stats_close=stats_close)
+    readings = {}
+    for name in ("serve_issue_ms.score", "lane_wait_ms.score",
+                 "lane_issue_ms.score", "lane_gap_ms.score",
+                 "issue_overlap.score"):
+        readings[name] = harness.reader(name)(ctx)
+    for name in TRACE_SPANS:
+        n0, s0 = stats_open["spans"].get(name, (0, 0.0))
+        n1, s1 = stats_close["spans"][name]
+        print(f"[trace] 15a {name}: {n1 - n0} spans, "
+              f"{1e3 * (s1 - s0) / max(1, n1 - n0):.4f} ms each")
+    print(f"[trace] 15a trace=True costs {cost:.3f}% of tokens/s "
+          f"(off {off:.1f}, on {on_:.1f}); readings {json.dumps(readings)}")
+    missing = [n for n, v in readings.items() if v is None]
+    if missing:
+        raise AssertionError(f"15a: no reading for {missing}")
+    drift_us = 1e6 * ((last[1] - first[1])
+                      - first[0].elapsed_time(last[0]) / 1e3)
+    span_s = last[1] - first[1]
+    print(f"[trace] 15b host less device clock over {span_s:.2f} s: "
+          f"{drift_us:.2f} us ({drift_us / span_s:.3f} us/s), readings "
+          f"{1e6 * first[2]:.2f} and {1e6 * last[2]:.2f} us wide; lanes "
+          f"re-anchor every {ANCHOR_PERIOD_S} s")
+
+    tl.trace = True
+    n0 = len(tl.spans)
+    os.makedirs(out_dir, exist_ok=True)
+    prof_path = os.path.join(out_dir, "profiler.json")
+    marks, marker_ends = [], []
+
+    def mark():
+        # a profiler range around no launch at a known reading of the
+        # clock, and a marker kernel whose end is timed with CUDA events
+        # and placed on the clock through an anchor reading
+        a = ex.host_now()
+        with record_function("phase15.clock"):
+            pass
+        marks.append((a, ex.host_now()))
+        anchor, t_anchor, _ = anchor_reading(side, ex.host_now)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(MARKER_CYCLES)
+            end.record(side)
+        end.synchronize()
+        marker_ends.append(t_anchor + anchor.elapsed_time(end) / 1e3)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        mark()
+        traced = clients.run(generator.batches(mix, cfg.vocab, TRACE_SEED,
+                                               cycle), 0.0)
+        torch.cuda.synchronize()
+        mark()
+    prof.export_chrome_trace(prof_path)
+    spans = tl.spans[n0:]
+    # the profiler names a thread's runtime calls by its OS id where its
+    # CPU side saw the thread, else by its pthread_t cut to 32 bits, and
+    # that negated where its top bit is set (seen on the H100's machine)
+    lane_tids = {lane: [w.native_id, w.ident & 0xFFFFFFFF,
+                        (1 << 32) - (w.ident & 0xFFFFFFFF)]
+                 for lane, w in ex._lanes.items()}
+    overlay = os.path.join(out_dir, "overlay.json")
+    tl.to_chrome_trace(overlay, profiler_trace=prof_path)
+    with open(overlay) as f:
+        doc = json.load(f)
+    merged = doc["traceEvents"]
+    shift_us = (tl.epoch_unix_ns - int(doc.get("baseTimeNanoseconds", 0))) \
+        / 1e3
+    ends_us = [t * 1e6 + shift_us for t in marker_ends]
+    with open(os.path.join(out_dir, "lanes.json"), "w") as f:
+        json.dump({"lane_tids": lane_tids, "marks": marks,
+                   "shift_us": shift_us, "marker_ends_us": ends_us}, f)
+    with open(overlay, "rb") as f, gzip.open(overlay + ".gz", "wb") as g:
+        shutil.copyfileobj(f, g)
+    os.remove(overlay)
+    os.remove(prof_path)
+    for eng in clients.engines:
+        eng.close()
+    sched.close()
+    got = overlay_check(merged, lane_tids, ends_us)
+    lead = [ts - (a * 1e6 + shift_us) for ts, (a, _) in
+            zip(got["marks"], marks)]
+    print(f"[trace] 15c clock marks: profiler less program clock "
+          f"{[round(x, 2) for x in lead]} us (each read "
+          f"{[round(1e6 * (b - a), 2) for a, b in marks]} us wide); the "
+          f"profiler's device clock runs {got['line'][0]:.1f} parts per "
+          f"million off the program's ({got['line'][2]} markers)")
+    print(f"[trace] 15c lane threads {lane_tids}, runtime calls' threads "
+          f"{got['runtime_tids']}, {got['gpu_ops']} device operations")
+    n_el = sum(1 for sp in spans if sp.kind in ("compute", "h2d"))
+    matched = got["matched"]
+    print(f"[trace] 15c {len(traced.records)} batches, {n_el} elements, "
+          f"{len(matched)} matched to their device operations, unmatched "
+          f"{got['bare']}")
+    for name, lane, d0, d1, g0, g1, busy in matched:
+        print(f"[trace] 15c   {name} lane {lane}: start {d0:+.2f} us, "
+              f"end {d1:+.2f} us from its first and last operation; host "
+              f"{g0:.2f} us from start event to first launch, {g1:.2f} us "
+              f"from last launch to completion event"
+              f"{', recorded while the device ran it' * busy}")
+    ours = [e for e in merged if e.get("pid") == TIMELINE_PID
+            and e.get("ph") == "X"]
+    kernels = [e for e in merged if e.get("cat") in GPU_CATS]
+    lo = min(float(e["ts"]) for e in kernels)
+    hi = max(float(e["ts"]) + float(e["dur"]) for e in kernels)
+    inside = sum(1 for e in ours if e["cat"] in ("compute", "h2d")
+                 and lo - 1e3 <= e["ts"] and e["ts"] + e["dur"] <= hi + 1e3)
+    print(f"[trace] 15c overlay: {len(ours)} timeline spans over "
+          f"{len(kernels)} device operations, {inside} of {n_el} element "
+          f"spans inside the profiler's device range")
+    # the profiler drops some copies' records (phase 5), never a kernel's
+    bare = [b for b in got["bare"] if b[1] == "compute"]
+    if bare or not matched or inside != n_el:
+        raise AssertionError(f"15c: no device operation found for {bare}; "
+                             f"{inside} of {n_el} inside")
+    d0 = [m[2] for m in matched]
+    d1 = [m[3] for m in matched]
+    tight = [m[3] for m in matched if m[6]]
+    print(f"[trace] 15c start less first operation median "
+          f"{statistics.median(d0):.2f} us, {min(d0):.2f} to {max(d0):.2f}; "
+          f"end less last operation median {statistics.median(d1):.2f} us, "
+          f"{min(d1):.2f} to {max(d1):.2f}; of the {len(tight)} completion "
+          f"events recorded while the device ran the element, "
+          f"{min(tight, default=0):.2f} to {max(tight, default=0):.2f} us")
+    # An interval holds its element's operations.  It starts when the idle
+    # stream reaches the start event, ahead of the first operation by the
+    # host's own issue between the two; it ends at the last operation
+    # where the completion event was queued while the device still ran
+    # the element.
+    worst = max(max(d0), -min(d1), max(map(abs, tight), default=0.0))
+    if worst > TRACE_TOL_US or not tight:
+        raise AssertionError(f"15c: an element's interval is {worst:.2f} us "
+                             f"off its device operations")
+    print(f"[trace] phase {time.perf_counter() - t_phase:.2f} s")
+    return {"cost_pct": cost, "drift_us": drift_us, "worst_us": worst,
+            "readings": readings}
+
+
+def phase_trace_process() -> dict:
+    """Phase 15 in a process of its own, as phases 8 to 14."""
+    cmd = [sys.executable, os.path.abspath(__file__), TRACE_ONLY]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    sys.stdout.write(res.stdout)
+    sys.stderr.write(res.stderr)
+    lines = res.stdout.splitlines()
+    if res.returncode != 0 or not lines or not lines[-1].startswith("{"):
+        raise AssertionError(f"phase 15 failed (exit {res.returncode})")
+    return json.loads(lines[-1])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4474,6 +4790,12 @@ def main() -> int:
     if EXAMPLES_ONLY in sys.argv:       # phase 14's own process
         print(json.dumps(phase_examples(card)))
         return 0
+    if TRACE_ONLY in sys.argv:          # phase 15's own process
+        out = (sys.argv[sys.argv.index(TRACE_OUT) + 1]
+               if TRACE_OUT in sys.argv
+               else os.path.join(ROOT, "build", "trace"))
+        print(json.dumps(phase_trace(card, out)))
+        return 0
     if EXAMPLE_RUN in sys.argv:         # an example of phase 14
         print(json.dumps(run_example(
             sys.argv[sys.argv.index(EXAMPLE_RUN) + 1])))
@@ -4507,6 +4829,7 @@ def main() -> int:
     dry = phase_dryrun_process()
     phase_core_process()
     phase_examples_process()
+    phase_trace_process()
     for row in rows:
         name = row["name"]
         # each kernel's main path: serving (qwen3's, rwkv6's for the WKV6

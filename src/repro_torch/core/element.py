@@ -190,6 +190,10 @@ class ComputationalElement:
     t_issue: float = float("nan")      # submission time (queueing-delay base)
     t_start: float = float("nan")
     t_end: float = float("nan")
+    # The layer span open where the element was submitted (the real
+    # executor's ``submit``): its batch's trace id and that span's uid.
+    trace_id: Optional[int] = None
+    trace_parent: Optional[int] = None
 
     @property
     def weight(self) -> float:

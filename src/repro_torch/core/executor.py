@@ -27,7 +27,7 @@ import time
 import weakref
 from collections import deque
 from dataclasses import dataclass
-from typing import Deque, Dict, List, Optional
+from typing import Callable, Deque, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -36,6 +36,13 @@ from .dtypes import to_numpy, to_tensor, torch_dtype
 from .element import AccessMode, ComputationalElement, ElementKind, ElementState
 from .history import KernelHistory
 from .timeline import Timeline
+
+# Tries of an anchor reading (the one read in the shortest time is kept),
+# and the age at which a lane re-anchors its device: host and device
+# clocks drift apart (3 to 6 us a second on the H100s measured, so 12 us
+# at most between anchors), and ``elapsed_time`` is a float32 of ms.
+ANCHOR_TRIES = 3
+ANCHOR_PERIOD_S = 2.0
 
 
 class Executor:
@@ -119,11 +126,16 @@ class Executor:
 # Real execution: threads as lanes, one CUDA stream per lane underneath
 # ======================================================================
 
-def _to_device(x, dev: torch.device):
+def _no_begin() -> None:
+    pass
+
+
+def _to_device(x, dev: torch.device, begin: Callable[[], None] = _no_begin):
     """Commit one value to the lane's device: host arrays are uploaded,
     tensors elsewhere are copied, anything else (a model, a dict of caches)
     passes through unchanged.  A bf16 host array (``ml_dtypes.bfloat16``)
-    arrives as ``torch.bfloat16`` with its bits unchanged.
+    arrives as ``torch.bfloat16`` with its bits unchanged.  ``begin`` is
+    called just before a copy is issued.
 
     On CUDA a host array is first copied into pinned memory from PyTorch's
     caching host allocator, then uploaded with ``non_blocking=True``: from
@@ -136,13 +148,16 @@ def _to_device(x, dev: torch.device):
         t = to_tensor(x)
         if dev.type == "cuda":
             t = t.pin_memory()
+        begin()
         return t.to(dev, non_blocking=True)
     if isinstance(x, torch.Tensor) and x.device != dev:
+        begin()
         return x.to(dev, non_blocking=True)
     return x
 
 
-def _arg_value(arg, dev: torch.device):
+def _arg_value(arg, dev: torch.device,
+               begin: Callable[[], None] = _no_begin):
     """The value a kernel receives for one argument.  An ``out`` argument
     that has never been on a device gets a fresh uninitialized tensor of
     its shape and dtype: the kernel only writes it, so uploading its host
@@ -153,24 +168,28 @@ def _arg_value(arg, dev: torch.device):
             and isinstance(ma.host, np.ndarray)):
         return torch.empty(ma.host.shape, dtype=torch_dtype(ma.host.dtype),
                            device=dev)
-    return _to_device(ma.device_value(), dev)
+    return _to_device(ma.device_value(), dev, begin)
 
 
-def _run_device_element(e: ComputationalElement, dev: torch.device):
+def _run_device_element(e: ComputationalElement, dev: torch.device,
+                        begin: Callable[[], None] = _no_begin):
     """Execute a kernel/transfer element against its ManagedArray args.
 
     ``dev`` is the torch device the element's lane is pinned to.  On CUDA
     the caller has made the lane's stream current, so every copy and kernel
     issued here is ordered on that stream; completion is the caller's
-    event."""
+    event.  ``begin`` is called just before the element's first device
+    operation is issued (the caller's start event), after the host's own
+    part of the work before it: staging an upload, decoding a tier's
+    payload, making an ``out`` argument's tensor."""
     if e.kind is ElementKind.TRANSFER:
         ma = e.args[0].array
-        ma.set_physical_device(_to_device(np.asarray(ma.host), dev))
+        ma.set_physical_device(_to_device(np.asarray(ma.host), dev, begin))
         return
 
     if e.kind is ElementKind.D2D:
         ma = e.args[0].array
-        ma.set_physical_device(_to_device(ma.device_value(), dev))
+        ma.set_physical_device(_to_device(ma.device_value(), dev, begin))
         return
 
     if e.kind is ElementKind.EVICT:
@@ -179,8 +198,9 @@ def _run_device_element(e: ComputationalElement, dev: torch.device):
         if tier is not None and tier.location == "device":
             # Peer-device spill: a D2D copy onto the tier's target device
             # (the lane — and dev — belong to the target, like any D2D).
-            ma.set_physical_device(_to_device(ma.device_value(), dev))
+            ma.set_physical_device(_to_device(ma.device_value(), dev, begin))
             return
+        begin()
         if tier is not None:
             # Host-side tier: store/encode the payload (compressed bytes,
             # spool file), then release the device buffer.
@@ -200,10 +220,11 @@ def _run_device_element(e: ComputationalElement, dev: torch.device):
         # payload (refreshing ma.host) and the copy engine uploads it.
         ma = e.args[0].array
         ma.set_physical_device(
-            _to_device(np.asarray(e.tier.reload(ma)), dev))
+            _to_device(np.asarray(e.tier.reload(ma)), dev, begin))
         return
 
-    inputs = [_arg_value(a, dev) for a in e.args]
+    inputs = [_arg_value(a, dev, begin) for a in e.args]
+    begin()
     result = e.fn(*inputs)
     writable = [a.array for a in e.args if a.mode.writes]
     if writable:
@@ -223,22 +244,32 @@ class _LaneWorker(threading.Thread):
         self.executor = executor
         self.q: "queue.Queue" = queue.Queue()
         # The lane's CUDA stream, one per device this lane ran on (created
-        # lazily; a lane stays on one device in practice).
+        # lazily; a lane stays on one device in practice), and the
+        # completion event of the last element each stream ran.
         self._streams: Dict[torch.device, "torch.cuda.Stream"] = {}
+        self._last_done: Dict[torch.device, "torch.cuda.Event"] = {}
         self.start()
 
     def _execute(self, element: ComputationalElement) -> tuple:
         """Run one element to completion on this lane, between the
-        executor's ``pre_exec`` and ``post_exec`` hooks; returns the host
-        clock at its start and end (inside the hooks).
+        executor's ``pre_exec`` and ``post_exec`` hooks.  Returns
+        ``(t_begin, t0, t1, t_issued, t_end)`` on the executor's clock: the
+        start of its ``lane.issue``, the element's interval, the end of its
+        ``lane.issue`` (every copy and launch issued, the completion event
+        recorded) and of its ``lane.sync`` (complete, hooks run).
 
         On CUDA the element's copies and kernels are issued on the lane's
-        stream (the current stream is thread-local in PyTorch), and the
-        element is complete once an event recorded after them has
-        synchronized — the ``block_until_ready`` of the JAX executor.  The
-        hooks run with that stream current: whatever ``pre_exec`` issues on
-        the device is ordered before the element's kernels, and
-        ``post_exec`` runs once they have completed.
+        stream (the current stream is thread-local in PyTorch), between a
+        start event, recorded just before the first of them, and a
+        completion event, both timing-enabled; the
+        element is complete once the completion event has synchronized —
+        the ``block_until_ready`` of the JAX executor.  Its interval is
+        then the device's, from the start event to the completion event,
+        placed on the executor's clock through the device's anchor.  The
+        hooks run with that stream current: whatever ``pre_exec`` issues
+        on the device is ordered before the element's kernels, and
+        ``post_exec`` runs once they have completed.  On the CPU the
+        interval is the host's, inside the hooks.
 
         Caching allocator across streams: a tensor made on lane A and read
         on lane B stays safe only because B starts after A's event has
@@ -247,34 +278,62 @@ class _LaneWorker(threading.Thread):
         Moving cross-lane waits onto the device (``wait_event``) will need
         ``record_stream`` on every tensor a lane consumes from another."""
         ex = self.executor
+        tl = ex.timeline
         pre, post = ex.pre_exec, ex.post_exec
         dev = ex.torch_device_for(element)
         if dev.type != "cuda":
-            if pre is not None:
-                pre(element)
-            t0 = ex.host_now()
-            _run_device_element(element, dev)
-            t1 = ex.host_now()
+            t_begin = tl.issue_edge(+1)
+            try:
+                if pre is not None:
+                    pre(element)
+                t0 = ex.host_now()
+                _run_device_element(element, dev)
+                t1 = ex.host_now()
+            finally:
+                t_issued = tl.issue_edge(-1)
             if post is not None:
                 post(element)
-            return t0, t1
+            return t_begin, t0, t1, t_issued, ex.host_now()
         stream = self._streams.get(dev)
         if stream is None:
+            ex._anchor_device(dev)
             stream = self._streams[dev] = torch.cuda.Stream(device=dev)
+        anchor, t_anchor = ex._anchors[dev]
+        start = torch.cuda.Event(enable_timing=True)
+        started = []
+
+        def begin() -> None:
+            if not started:
+                start.record(stream)
+                started.append(True)
+
         with torch.cuda.stream(stream):
-            if pre is not None:
-                pre(element)
-            t0 = ex.host_now()
-            _run_device_element(element, dev)
-            done = torch.cuda.Event()
-            done.record(stream)
+            t_begin = tl.issue_edge(+1)
+            try:
+                if pre is not None:
+                    pre(element)
+                _run_device_element(element, dev, begin)
+                begin()             # an element that issued nothing
+                done = torch.cuda.Event(enable_timing=True)
+                done.record(stream)
+            finally:
+                t_issued = tl.issue_edge(-1)
             done.synchronize()
-            t1 = ex.host_now()
             if post is not None:
                 post(element)
-        return t0, t1
+        t_end = ex.host_now()
+        t0 = t_anchor + anchor.elapsed_time(start) / 1e3
+        t1 = t_anchor + anchor.elapsed_time(done) / 1e3
+        last = self._last_done.get(dev)
+        if last is not None:
+            tl.lane_gap(last.elapsed_time(start) / 1e3)
+        self._last_done[dev] = done
+        if t_end - t_anchor > ANCHOR_PERIOD_S:
+            ex._anchor_device(dev, older_than=t_anchor)
+        return t_begin, t0, t1, t_issued, t_end
 
     def run(self) -> None:
+        tl = self.executor.timeline
         while True:
             item = self.q.get()
             if item is None:
@@ -293,7 +352,7 @@ class _LaneWorker(threading.Thread):
                 if gate is not None:
                     gate.wait()
                 element.state = ElementState.RUNNING
-                t0, t1 = self._execute(element)
+                t_begin, t0, t1, t_issued, t_end = self._execute(element)
                 element.t_start, element.t_end = t0, t1
                 kind = ("h2d" if element.kind in (ElementKind.TRANSFER,
                                                  ElementKind.RELOAD)
@@ -302,10 +361,16 @@ class _LaneWorker(threading.Thread):
                                            and element.src_device is not None))
                         else "d2h" if element.kind is ElementKind.EVICT
                         else "compute")
-                self.executor.timeline.record(
+                trace = dict(lane=self.lane_id, trace_id=element.trace_id,
+                             parent=element.trace_parent)
+                tl.close_span("lane.wait", element.t_issue, t_begin, **trace)
+                tl.close_span("lane.issue", t_begin, t_issued, **trace)
+                tl.close_span("lane.sync", t_issued, t_end, **trace)
+                tl.record(
                     element.uid, element.name, kind, self.lane_id, t0, t1,
                     tenant=element.tenant, priority=element.priority,
-                    t_issue=element.t_issue, deadline=element.deadline_t)
+                    t_issue=element.t_issue, deadline=element.deadline_t,
+                    trace_id=element.trace_id, parent=element.trace_parent)
                 if element.kind is ElementKind.KERNEL:
                     self.executor.history.record(
                         element.name, element.config, t1 - t0)
@@ -321,6 +386,24 @@ class _LaneWorker(threading.Thread):
                 # reachable: tier-spilled blocks rely on GC finalizers to
                 # release their spool payloads.
                 del item, element, waits
+
+
+def anchor_reading(stream: "torch.cuda.Stream", clock) -> tuple:
+    """``(event, t, width)``: a timing-enabled event recorded on ``stream``
+    and synchronized, and ``clock``'s reading midway between just before
+    the record and just after the synchronize, ``width`` apart; of
+    ``ANCHOR_TRIES`` tries the narrowest.  ``stream`` holds no other work,
+    so the event completes as soon as the device reaches it."""
+    best = None
+    for _ in range(ANCHOR_TRIES):
+        ev = torch.cuda.Event(enable_timing=True)
+        a = clock()
+        ev.record(stream)
+        ev.synchronize()
+        b = clock()
+        if best is None or b - a < best[2]:
+            best = (ev, (a + b) / 2, b - a)
+    return best
 
 
 def _release_cublas_workspaces() -> None:
@@ -352,7 +435,6 @@ class ThreadLaneExecutor(Executor):
             raise RuntimeError(
                 "ThreadLaneExecutor: device='cuda' but no CUDA device is "
                 "available; pass device='cpu' to run the lanes on the host")
-        self.timeline = Timeline()
         self.history = KernelHistory()
         self.num_devices = max(1, num_devices)
         self._lanes: Dict[int, _LaneWorker] = {}
@@ -361,7 +443,18 @@ class ThreadLaneExecutor(Executor):
         # device whose memory each releases (see _evictions_before).
         self._evicting: Dict[int, List[ComputationalElement]] = {}
         self._evicting_lock = threading.Lock()
-        self._epoch = time.perf_counter()
+        # The clock's zero, on ``perf_counter`` and in Unix time (the
+        # profiler's Chrome traces are stamped in Unix time).
+        before = time.perf_counter()
+        unix_ns = time.time_ns()
+        self._epoch = (before + time.perf_counter()) / 2
+        self.timeline = Timeline(clock=self.host_now, epoch_unix_ns=unix_ns)
+        # Per CUDA device: a stream of its own for anchors, and the anchor,
+        # an event recorded and synchronized there with the clock's reading
+        # at that moment, which places every lane's event times on the clock.
+        self._anchor_streams: Dict[torch.device, "torch.cuda.Stream"] = {}
+        self._anchors: Dict[torch.device, tuple] = {}
+        self._anchor_lock = threading.Lock()
 
     def torch_device_for(self, element: ComputationalElement) -> torch.device:
         """Torch device backing the element's lane.  On the CPU, and with a
@@ -377,6 +470,26 @@ class ThreadLaneExecutor(Executor):
 
     def host_now(self) -> float:
         return time.perf_counter() - self._epoch
+
+    def _anchor_device(self, dev: torch.device,
+                       older_than: Optional[float] = None) -> None:
+        """(Re-)anchor ``dev`` (``anchor_reading`` on its anchor stream).
+        Made with the device's first lane stream, and again once the anchor
+        is ``ANCHOR_PERIOD_S`` old (``older_than``: the anchor's reading the
+        caller found, so that lanes finding it old together anchor once).
+        ``elapsed_time`` from the anchor then gives any completed event's
+        time on the clock, within half that reading's width."""
+        with self._anchor_lock:
+            held = self._anchors.get(dev)
+            if held is not None and (older_than is None
+                                     or held[1] > older_than):
+                return
+            stream = self._anchor_streams.get(dev)
+            if stream is None:
+                # high priority: a pool of its own, apart from the lanes'
+                stream = self._anchor_streams[dev] = torch.cuda.Stream(
+                    device=dev, priority=-1)
+            self._anchors[dev] = anchor_reading(stream, self.host_now)[:2]
 
     def _worker(self, lane_id: int) -> _LaneWorker:
         worker = self._lanes.get(lane_id)
@@ -421,6 +534,7 @@ class ThreadLaneExecutor(Executor):
         element.done_event = threading.Event()
         element.error = None
         element.state = ElementState.QUEUED
+        element.trace_id, element.trace_parent = self.timeline.context()
         element.t_issue = self.host_now()
         self._submitted.append(element)
         waits = list(wait_parents) + self._evictions_before(element)
@@ -430,10 +544,12 @@ class ThreadLaneExecutor(Executor):
         # Pre-materialize every completion event before anything is
         # enqueued: a worker may dequeue a child and wait on a sibling-lane
         # parent that has not been individually submitted yet.
+        trace = self.timeline.context()
         for element, _, _ in items:
             element.done_event = threading.Event()
             element.error = None
             element.state = ElementState.QUEUED
+            element.trace_id, element.trace_parent = trace
             element.t_issue = self.host_now()
         for element, lane_id, waits in items:
             self._submitted.append(element)
@@ -552,7 +668,7 @@ class SimExecutor(Executor):
 
     def __init__(self, hw: Optional[SimHardware] = None) -> None:
         self.hw = hw or SimHardware()
-        self.timeline = Timeline()
+        self.timeline = Timeline(clock=self.host_now)
         self.history = KernelHistory()
         self.now = 0.0                    # device/simulation clock
         self.host_time = 0.0              # host program clock

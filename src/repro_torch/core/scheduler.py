@@ -59,12 +59,16 @@ class GrScheduler:
                  plan_optimize: bool = True,
                  slo_targets: Optional[Mapping[str, float]] = None,
                  sanitize: bool = False,
-                 device: str = "cuda") -> None:
+                 device: str = "cuda",
+                 trace: bool = False) -> None:
         assert policy in ("serial", "parallel")
         self.policy = policy
         self.num_devices = max(1, num_devices)
         self.executor = executor or ThreadLaneExecutor(
             num_devices=self.num_devices, device=device)
+        # Layer-span records join the timeline's spans only when traced;
+        # their counts and seconds (``stats()["spans"]``) are always kept.
+        self.executor.timeline.trace = bool(trace)
         self.dag = ComputationDAG()
         # Per-device byte budgets (None = unlimited): the MemoryManager owns
         # resident-set accounting and every logical location-bit flip; the
@@ -204,7 +208,7 @@ class GrScheduler:
         identity capture plans are keyed by.  Thread-safe — concurrent
         submitters serialize on the scheduler's submission pipeline.
         """
-        with self.pipeline:
+        with self.timeline.span("sched.launch"), self.pipeline:
             if tune:
                 config = dict(config, **self._tune(name, tune))
             if device is not None:
@@ -495,7 +499,8 @@ class GrScheduler:
                     **self.memory.stats(),
                     **self.deadlines.stats(),
                     **(self.sanitizer.stats() if self.sanitizer is not None
-                       else {})}
+                       else {}),
+                    **self.timeline.stats()}
 
     def tenant_stats(self) -> dict:
         """Per-tenant QoS metrics (makespan, queueing delay, completion
@@ -552,7 +557,8 @@ def make_scheduler(policy: str = "parallel", *, simulate: bool = False,
     ``device`` is where the real executor's lanes run: ``"cuda"`` (one CUDA
     stream per lane) unless the caller asks for ``"cpu"``.  Without a card
     a ``"cuda"`` scheduler raises; it never falls back to the host.
-    ``simulate=True`` needs no device.
+    ``simulate=True`` needs no device.  ``trace=True`` keeps a record of
+    every layer span on the timeline (see ``timeline.py``).
     """
     num_devices = max(1, num_devices)
     if simulate:

@@ -8,22 +8,48 @@ the timeline we compute the paper's four overlap metrics:
 * **CC** — fraction of computation time overlapped with other computation;
 * **TOT** — fraction of device-busy time where ≥2 device tasks overlap,
   overlap intervals counted once (union semantics).
+
+On the real executor's CUDA lanes an element's interval is its device
+interval, timed with CUDA events and placed on the program's clock; on the
+CPU lanes and in the simulator it is the host (or simulated) interval.
+
+Layer spans mark each boundary of the serving path on the program's clock:
+``serve.flush``, ``serve.issue`` and ``serve.collect`` (the serving
+engine), ``sched.launch`` (the scheduler), ``lane.wait``, ``lane.issue``
+and ``lane.sync`` (each element on its lane worker).  Their count and
+seconds by name are always kept (``stats()["spans"]``); their records join
+``spans`` only when ``trace`` is on, each with its batch's ``trace_id``
+and the ``parent`` span that caused it.  Two counters sit beside them:
+``lane_gap``, the device time from an element's completion to the start
+of the next element on the same CUDA stream, and ``issue_overlap_s``, the
+lane-seconds spent inside ``lane.issue`` while another lane was inside it
+too.
 """
 from __future__ import annotations
 
+import json
 import threading
+import time
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
+
+from .element import _ELEMENT_IDS
 
 
 _NAN = float("nan")
+# Chrome-export rows: the process of a timeline merged into a profiler's
+# file (above any Linux pid), and the offset of a lane thread's row from
+# its stream's.
+TIMELINE_PID = 1_000_000_000
+LANE_THREAD_ROW = 10_000
 
 
 @dataclass(frozen=True)
 class Span:
     uid: int
     name: str
-    kind: str          # "compute" | "h2d" | "d2h" | "d2d" | "host"
+    kind: str          # "compute" | "h2d" | "d2h" | "d2d" | "host", or a
+    #                    layer span's layer: "serve" | "sched" | "lane"
     lane: Optional[int]
     t0: float
     t1: float
@@ -34,6 +60,10 @@ class Span:
     #                                    span's queueing delay
     deadline: Optional[float] = None   # absolute deadline (None = no SLO);
     #                                    met iff t1 <= deadline
+    trace_id: Optional[int] = None     # the batch's identifier (the rid of
+    #                                    its first request), on every span
+    #                                    of that batch
+    parent: Optional[int] = None       # uid of the span that caused this one
 
     @property
     def dur(self) -> float:
@@ -120,9 +150,47 @@ def _k_overlap(spans: List[Tuple[float, float]], k: int = 2
     return _union(out)
 
 
+class _LayerSpan:
+    """One open layer span (``Timeline.span``): closed on exit, its parent
+    the innermost span open on the same thread."""
+
+    __slots__ = ("tl", "name", "trace_id", "uid", "parent", "t0")
+
+    def __init__(self, tl: "Timeline", name: str,
+                 trace_id: Optional[int]) -> None:
+        self.tl, self.name, self.trace_id = tl, name, trace_id
+
+    def __enter__(self) -> "_LayerSpan":
+        tl = self.tl
+        stack = tl._open_spans()
+        up = stack[-1] if stack else None
+        self.parent = up.uid if up is not None else None
+        if self.trace_id is None and up is not None:
+            self.trace_id = up.trace_id
+        self.uid = next(_ELEMENT_IDS) if tl.trace else None
+        stack.append(self)
+        self.t0 = tl.clock()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        t1 = self.tl.clock()
+        self.tl._open_spans().pop()
+        self.tl.close_span(self.name, self.t0, t1, uid=self.uid,
+                           trace_id=self.trace_id, parent=self.parent)
+
+
 @dataclass
 class Timeline:
     spans: List[Span] = field(default_factory=list)
+    # The program's clock (the executor's ``host_now``), which layer spans
+    # and lane boundaries read.
+    clock: Callable[[], float] = time.perf_counter
+    # Keep layer-span records in ``spans`` (their aggregates are kept
+    # either way).  Set by ``GrScheduler(trace=True)``.
+    trace: bool = False
+    # Unix time in ns at ``clock``'s zero (0: the clock is not tied to
+    # the wall, as the simulator's is not): the Chrome export's time base.
+    epoch_unix_ns: int = 0
     # Per-tenant append-only buffers of device spans, filled by record():
     # tenant_stats() reads these instead of rescanning (and re-sorting) the
     # full span list on every call.  ``_tenant_cache`` memoizes one stats
@@ -136,20 +204,100 @@ class Timeline:
     # NOT all under the scheduler's pipeline lock — a timeline-internal lock
     # keeps each record and each stats pass internally consistent.
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+    # Layer spans by name: [count, seconds], cumulative.
+    _agg: Dict[str, list] = field(default_factory=dict)
+    # Lane gaps on the device: [count, seconds], cumulative.
+    _gap: list = field(default_factory=lambda: [0, 0.0])
+    # Lanes inside ``lane.issue`` now, the clock at the last boundary, and
+    # the lane-seconds spent there while at least two were.
+    _issuing: int = 0
+    _issue_t: float = 0.0
+    _overlap_s: float = 0.0
+    _local: threading.local = field(default_factory=threading.local,
+                                    repr=False)
 
     _DEVICE_KINDS = ("compute", "h2d", "d2h", "d2d")
 
     def record(self, uid: int, name: str, kind: str, lane: Optional[int],
                t0: float, t1: float, *, tenant: Optional[str] = None,
                priority: int = 0, t_issue: float = _NAN,
-               deadline: Optional[float] = None) -> None:
+               deadline: Optional[float] = None,
+               trace_id: Optional[int] = None,
+               parent: Optional[int] = None) -> None:
         s = Span(uid, name, kind, lane, t0, t1,
                  tenant=tenant, priority=priority,
-                 t_issue=t_issue, deadline=deadline)
+                 t_issue=t_issue, deadline=deadline,
+                 trace_id=trace_id, parent=parent)
         with self._lock:
             self.spans.append(s)
             if tenant is not None and kind in self._DEVICE_KINDS:
                 self._per_tenant.setdefault(tenant, []).append(s)
+
+    # -- layer spans and counters ----------------------------------------
+    def _open_spans(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def span(self, name: str, trace_id: Optional[int] = None) -> _LayerSpan:
+        """``with timeline.span("serve.issue", trace_id=rid):`` — a layer
+        span on the calling thread, nested under the one open there."""
+        return _LayerSpan(self, name, trace_id)
+
+    def context(self) -> Tuple[Optional[int], Optional[int]]:
+        """``(trace_id, uid)`` of the innermost layer span open on the
+        calling thread: what an element submitted now carries."""
+        stack = self._open_spans()
+        if not stack:
+            return None, None
+        return stack[-1].trace_id, stack[-1].uid
+
+    def close_span(self, name: str, t0: float, t1: float, *,
+                   lane: Optional[int] = None, uid: Optional[int] = None,
+                   trace_id: Optional[int] = None,
+                   parent: Optional[int] = None) -> None:
+        """Count a layer span ``[t0, t1]`` under ``name``, and with
+        ``trace`` on keep its record (``uid`` drawn here where not
+        given)."""
+        with self._lock:
+            agg = self._agg.get(name)
+            if agg is None:
+                self._agg[name] = [1, t1 - t0]
+            else:
+                agg[0] += 1
+                agg[1] += t1 - t0
+            if self.trace:
+                self.spans.append(Span(
+                    next(_ELEMENT_IDS) if uid is None else uid, name,
+                    name.split(".", 1)[0], lane, t0, t1,
+                    trace_id=trace_id, parent=parent))
+
+    def lane_gap(self, seconds: float) -> None:
+        with self._lock:
+            self._gap[0] += 1
+            self._gap[1] += seconds
+
+    def issue_edge(self, delta: int) -> float:
+        """A lane enters (``+1``) or leaves (``-1``) ``lane.issue``; returns
+        the clock at that boundary, read under the lock so that the
+        boundaries of all lanes come in the clock's order."""
+        with self._lock:
+            now = self.clock()
+            if self._issuing >= 2:
+                self._overlap_s += self._issuing * (now - self._issue_t)
+            self._issuing += delta
+            self._issue_t = now
+            return now
+
+    def stats(self) -> dict:
+        """Cumulative layer-span aggregates ``{"spans": {name: (count,
+        seconds)}}``, ``lane_gap`` ``(count, seconds)`` and
+        ``issue_overlap_s``; a reader takes the difference of two."""
+        with self._lock:
+            return {"spans": {n: (a[0], a[1]) for n, a in self._agg.items()},
+                    "lane_gap": (self._gap[0], self._gap[1]),
+                    "issue_overlap_s": self._overlap_s}
 
     def device_busy_since(self, idx: int) -> Tuple[int, float]:
         """Sum of device-span durations recorded at or after span index
@@ -247,66 +395,60 @@ class Timeline:
             out[tenant] = dict(stats)
         return out
 
-    def busy_time(self, kind: str) -> float:
-        return _measure(_union([(s.t0, s.t1) for s in self.spans if s.kind == kind]))
-
-    def reload_spans(self) -> List[Span]:
-        """H2D spans that re-upload a previously uploaded block.
-
-        Two sources: explicitly named ``reload_*`` transfers (Belady plans,
-        tier reloads) and *repeat* H2D uploads of a name already seen on
-        the H2D engine — the eager LRU path names every upload ``h2d_*``,
-        so a second upload of the same array is spill-return traffic."""
-        out: List[Span] = []
-        seen: set = set()
-        for s in sorted((s for s in self.spans if s.kind == "h2d"),
-                        key=lambda s: s.t0):
-            if s.name.startswith("reload_") or s.name in seen:
-                out.append(s)
-            seen.add(s.name)
-        return out
-
-    def reload_stall_s(self) -> float:
-        """Reload time *not* hidden behind compute — the stall a smarter
-        eviction/prefetch schedule can actually remove (reload bytes alone
-        conflate overlapped and blocking traffic)."""
-        ru = _union([(s.t0, s.t1) for s in self.reload_spans()])
-        if not ru:
-            return 0.0
-        comp = _union([(s.t0, s.t1) for s in self.spans
-                       if s.kind == "compute"])
-        return _measure(ru) - _measure(_intersect(ru, comp))
-
-    def per_lane(self) -> Dict[int, List[Span]]:
-        lanes: Dict[int, List[Span]] = {}
-        for s in self.device_spans():
-            lanes.setdefault(s.lane if s.lane is not None else -1, []).append(s)
-        return lanes
-
-    def critical_path(self) -> float:
-        """Longest chain end-to-end (lower bound on any schedule)."""
-        return self.makespan  # refined bound computed by benchmarks from DAG
-
-    def to_rows(self) -> List[dict]:
-        return [s.__dict__ | {"dur": s.dur} for s in self.spans]
-
-    def to_chrome_trace(self, path: str) -> None:
+    def to_chrome_trace(self, path: str,
+                        profiler_trace: Optional[str] = None) -> None:
         """Export as a Chrome trace (chrome://tracing / Perfetto): one row
         per lane plus H2D/D2H/host rows — the paper's Fig. 10 timeline,
-        inspectable."""
-        import json
+        inspectable.
+
+        With lane spans on the timeline (the real executor traced), each
+        lane has a row for its thread (``lane.*``) and one for its stream
+        (its elements, device-timed on the card), and the engine's and the
+        scheduler's spans share a row.  A timeline tied to the wall clock
+        (``epoch_unix_ns``) is stamped as ``torch.profiler``'s
+        ``export_chrome_trace`` stamps: microseconds of Unix time less the
+        file's ``baseTimeNanoseconds``.  ``profiler_trace``, such a file
+        from the same process, lends its base and its events to this one,
+        so that one viewer shows the lanes over the device's kernels."""
+        header: dict = {}
+        theirs: list = []
+        base_ns = self.epoch_unix_ns // 10**9 * 10**9
+        if profiler_trace is not None:
+            with open(profiler_trace) as f:
+                header = json.load(f)
+            theirs = header.pop("traceEvents")
+            base_ns = int(header.get("baseTimeNanoseconds", 0))
+        elif self.epoch_unix_ns:
+            header["baseTimeNanoseconds"] = base_ns
+        shift = (self.epoch_unix_ns - base_ns) / 1e3 if self.epoch_unix_ns \
+            else 0.0
+        pid = TIMELINE_PID if profiler_trace is not None else 0
+        lanes = any(s.kind == "lane" for s in self.spans)
+        rows = {-1: "H2D engine", -2: "D2H engine", -3: "host",
+                -5: "D2D link"}
         events = []
         for s in self.spans:
-            tid = {"h2d": -1, "d2h": -2, "host": -3, "d2d": -5}.get(
-                s.kind, s.lane if s.lane is not None else -4)
-            events.append({
-                "name": s.name, "cat": s.kind, "ph": "X",
-                "ts": s.t0 * 1e6, "dur": max(0.01, s.dur * 1e6),
-                "pid": 0, "tid": tid,
-            })
-        meta = [{"name": "thread_name", "ph": "M", "pid": 0, "tid": t,
-                 "args": {"name": n}} for t, n in
-                [(-1, "H2D engine"), (-2, "D2H engine"), (-3, "host"),
-                 (-5, "D2D link")]]
+            if lanes and s.lane is not None:
+                thread = s.kind == "lane"
+                tid = s.lane + (LANE_THREAD_ROW if thread else 0)
+                rows[tid] = f"lane {s.lane} {'thread' if thread else 'stream'}"
+            elif s.kind in ("serve", "sched"):
+                tid = -6
+                rows[tid] = "serving engine and scheduler"
+            else:
+                tid = {"h2d": -1, "d2h": -2, "host": -3, "d2d": -5}.get(
+                    s.kind, s.lane if s.lane is not None else -4)
+            ev = {"name": s.name, "cat": s.kind, "ph": "X",
+                  "ts": s.t0 * 1e6 + shift, "dur": max(0.01, s.dur * 1e6),
+                  "pid": pid, "tid": tid}
+            if s.trace_id is not None or s.parent is not None:
+                ev["args"] = {"uid": s.uid, "trace_id": s.trace_id,
+                              "parent": s.parent}
+            events.append(ev)
+        meta = [{"name": "thread_name", "ph": "M", "pid": pid, "tid": t,
+                 "args": {"name": n}} for t, n in rows.items()]
+        if profiler_trace is not None:
+            meta.insert(0, {"name": "process_name", "ph": "M", "pid": pid,
+                            "args": {"name": "repro_torch timeline"}})
         with open(path, "w") as f:
-            json.dump({"traceEvents": meta + events}, f)
+            json.dump({**header, "traceEvents": theirs + meta + events}, f)

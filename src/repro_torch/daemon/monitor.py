@@ -183,9 +183,11 @@ class RuntimeMonitor:
     def _lane_utilization(self, now: float) -> float:
         """Device-busy seconds accrued since the previous sample, divided
         by wall-interval x lanes — a coarse utilization gauge.  On the
-        port's real executor those spans are host-clock element spans (a
-        lane's element from its start to its stream's completion), so on
-        the card the gauge reads lane occupancy, not device busy."""
+        port's real executor on the card each element's span is its device
+        interval (its start event to its completion event, on the
+        executor's clock), so the gauge reads the lanes' device busy; on
+        CPU lanes and in the simulator, the elements' host or simulated
+        intervals."""
         sched = self.scheduler
         if sched is None or self._last_t is None:
             return 0.0

@@ -186,7 +186,7 @@ class ServingEngine:
         long or a member's deadline is within the wait bound — late
         same-shape arrivals then fill it instead of padding.  ``force=True``
         issues everything regardless of age (drain/shutdown path)."""
-        with self.sched.pipeline:
+        with self.sched.timeline.span("serve.flush"), self.sched.pipeline:
             wait = getattr(self, "max_batch_wait_s", None)
             now = self.sched.executor.host_now()
             by_key: Dict[tuple, List[Request]] = collections.defaultdict(list)
@@ -243,7 +243,10 @@ class ServingEngine:
                     tenant = min(live, key=lambda t: (vt[t], t))
                 _, plen, ntok, prio, group = ready[tenant].popleft()
                 vt[tenant] += 1.0 / priority_weight(prio)
-                self._issue_batch(plen, ntok, tenant, prio, group)
+                # the batch's span, traced by its first request's rid
+                with self.sched.timeline.span("serve.issue",
+                                              trace_id=group[0].rid):
+                    self._issue_batch(plen, ntok, tenant, prio, group)
 
     def _issue_batch(self, plen: int, ntok: int, tenant: str, prio: int,
                      group: List[Request]) -> None:
@@ -277,14 +280,15 @@ class ServingEngine:
     def collect(self) -> List[Request]:
         """Host-reads each batch's output (syncing only its lane) and
         attaches results to the requests."""
-        done = []
-        for group, t_out in self._pending:
-            vals = np.asarray(t_out)
-            for j, r in enumerate(group):
-                r.result = vals[j]
-                done.append(r)
-        self._pending.clear()
-        return done
+        with self.sched.timeline.span("serve.collect"):
+            done = []
+            for group, t_out in self._pending:
+                vals = np.asarray(t_out)
+                for j, r in enumerate(group):
+                    r.result = vals[j]
+                    done.append(r)
+            self._pending.clear()
+            return done
 
     def stats(self) -> dict:
         return self.sched.stats()

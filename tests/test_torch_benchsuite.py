@@ -234,9 +234,9 @@ def test_out_argument_gets_a_fresh_tensor_and_is_never_uploaded(monkeypatch):
     uploaded = []
     real = texec._to_device
 
-    def spy(x, dev):
+    def spy(x, dev, *begin):
         uploaded.append(x)
-        return real(x, dev)
+        return real(x, dev, *begin)
     monkeypatch.setattr(texec, "_to_device", spy)
     seen = []
 

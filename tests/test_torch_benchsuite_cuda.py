@@ -52,9 +52,9 @@ def test_out_argument_is_never_uploaded_on_the_card(card, monkeypatch):
     uploaded = []
     real = texec._to_device
 
-    def spy(x, dev):
+    def spy(x, dev, *begin):
         uploaded.append(x)
-        return real(x, dev)
+        return real(x, dev, *begin)
     monkeypatch.setattr(texec, "_to_device", spy)
     seen = []
 
