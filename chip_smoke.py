@@ -11,8 +11,8 @@ Fifteen phases, each of which raises on failure (nothing is caught):
    of flash attention, the WKV6 forward or its backward, or a count of
    them other than expected, fails) and counts the flash library's
    tensor-core instructions (HGMMA, HMMA) with ``cuobjdump -sass``;
-2. kernels: each kernel (flash attention, RMSNorm, WKV6 and its backward)
-   against its plain PyTorch version on the card, at the shapes the
+2. kernels: each kernel (flash attention, RMSNorm, WKV6 and its backward,
+   rwkv6's norm-shift-mix) against its plain PyTorch version on the card, at the shapes the
    serving and training phases give it and a few more (ragged lengths,
    other head dims, flash's hd 16 padded, T = 1, float32), with its time
    at the serving shapes (flash also at gemma3's hd 256 and nemotron's hd
@@ -21,7 +21,8 @@ Fifteen phases, each of which raises on failure (nothing is caught):
    function, and the card's bound; WKV6 also at a state-carry split and a
    repeat run, both held bitwise; its backward from the states its
    forward keeps (y and sT of that forward bitwise the forward's), with a
-   repeat run held bitwise;
+   repeat run held bitwise; norm-shift-mix at both sites of the
+   benchmark's largest batch, and at each run length a warp may walk;
 3. qwen3 serving: LM serving through the scheduler.  Full-width
    ``qwen3_32b`` cut to 4 layers, random weights from a seeded generator,
    8 requests of 1024-token prompts in batches of 2 on CUDA-stream lanes.
@@ -30,8 +31,10 @@ Fifteen phases, each of which raises on failure (nothing is caught):
 4. rwkv serving: the same requests served by ``rwkv6_1_6b`` at full width
    and full depth (24 layers).  Checks the tokens, the lanes, that every
    recurrence (each prefill, and each decode step at T = 1) went through
-   the WKV6 kernel, and the prefill logits against the plain recurrence
-   after 2 to 24 layers, in float32 and bf16;
+   the WKV6 kernel and every LayerNorm, token shift and mix through the
+   norm-shift-mix kernel, and the prefill logits against the plain
+   recurrence, then against the plain norm, shift and mixes, after 2 to 24
+   layers, in float32 and bf16;
 5. benchsuite: the paper's six workloads (VEC, B&S, IMG, ML, HITS, DL) at
    their full size (scale 1.0), data made from seed 0, each run through the
    scheduler under the serial and then the parallel policy on CUDA-stream
@@ -246,11 +249,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core rate, float32
-# rate outside the tensor cores, HBM rate.
-PEAK_BF16_FLOPS = 989e12
+# H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet, dense);
+# the bf16 tensor-core and HBM rates are ``launch.mesh``'s.
 PEAK_F32_FLOPS = 67e12
-PEAK_HBM_BYTES = 3.35e12
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}     # as tests/test_kernels.py
 # WKV6 in float32 sums 64-term products in another order than the plain
 # loop, over up to a thousand steps: 1e-4 absolute beside 2e-5 relative.
@@ -347,13 +348,30 @@ RMS_CASES = [
     ("f32 d=1001", (37, 1001), "float32"),
 ]
 RMS_TIMED = len(RMS_CASES) - 1
+# (name, B, S, d, K, dtype of x).  The first two are the time-mix (K = 5)
+# and channel-mix (K = 2) sites of rwkv6.score_long's largest batch (B 4 x
+# S 8192, rwkv6_1_6b's d), timed, the first the row's timing; then the
+# cell's smallest batch, decode (S = 1), and float32 at a ragged S.
+NSM_CASES = [
+    ("time mix, B 4 x S 8192", 4, 8192, 2048, 5, "bfloat16"),
+    ("channel mix, B 4 x S 8192", 4, 8192, 2048, 2, "bfloat16"),
+    ("time mix, B 4 x S 2048", 4, 2048, 2048, 5, "bfloat16"),
+    ("decode", 4, 1, 2048, 5, "bfloat16"),
+    ("f32 ragged", 2, 333, 2048, 5, "float32"),
+]
+NSM_TIMED = 2
+# The norm-shift-mix library's instantiations: x's two types at five row
+# widths.  ptxas must report no spill in any of them.
+NSM_KERNELS = 10
 
 
 def kernel_ops() -> dict:
     from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.norm_shift_mix import ops as nsm
     from repro_torch.kernels.rmsnorm import ops as rmsnorm
     from repro_torch.kernels.rwkv6 import ops as wkv6
-    return {"flash_attention": flash, "rmsnorm": rmsnorm, "wkv6": wkv6}
+    return {"flash_attention": flash, "rmsnorm": rmsnorm, "wkv6": wkv6,
+            "norm_shift_mix": nsm}
 
 
 def reset_launches() -> None:
@@ -373,7 +391,8 @@ def read_launches() -> dict:
 def bound(flops: float, nbytes: float, peak_flops: float) -> dict:
     """The least time for the work: operations at the peak rate of their
     type or bytes at the HBM rate, whichever is larger."""
-    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_HBM_BYTES
+    from repro_torch.launch.mesh import HBM_BW
+    t_ops, t_bytes = flops / peak_flops, nbytes / HBM_BW
     return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 flops=flops, bytes=nbytes, ops_ms=t_ops * 1e3,
@@ -509,7 +528,8 @@ def phase_build() -> dict:
             print(f"[build] {lib}: {kernel}: {regs} registers, {stores} bytes "
                   f"spill stores, {loads} bytes spill loads")
         want = {"wkv6": WKV_KERNELS, "wkv6_bwd": WKV_BWD_KERNELS,
-                "flash_attention": FLASH_KERNELS}
+                "flash_attention": FLASH_KERNELS,
+                "norm_shift_mix": NSM_KERNELS}
         if lib in want and text:   # "" when built by an earlier run
             spills = [r for r in rows if r[2] != "0" or r[3] != "0"]
             if len(rows) != want[lib] or spills:
@@ -532,6 +552,7 @@ def phase_flash(sass: dict) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.launch.mesh import PEAK_BF16_FLOPS
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = 0.0
@@ -829,20 +850,80 @@ def phase_rmsnorm() -> dict:
                 max_abs_err=worst, **timing, shapes=shapes)
 
 
+def phase_norm_shift_mix() -> dict:
+    """rwkv6's LayerNorm, token shift and mixes in one kernel, against the
+    plain composition at NSM_CASES (each mixed input and the new shift at
+    the kernel phase's tolerance; tests/test_torch_norm_shift_mix_cuda.py
+    holds them bit by bit); timed at the two sites of the benchmark's
+    largest batch beside the plain composition and the bytes' bound."""
+    import torch
+    from repro_torch.kernels.norm_shift_mix import ops
+    from repro_torch.kernels.norm_shift_mix.ref import norm_shift_mix_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst, shapes = 0.0, []
+    for i, (label, B, S, d, K, dt) in enumerate(NSM_CASES):
+        dtype = getattr(torch, dt)
+        x = (torch.randn((B, S, d), generator=gen, device="cuda") * 2
+             + 0.5).to(dtype)
+        shift = torch.randn((B, d), generator=gen, device="cuda")
+        scale = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+        bias = 0.1 * torch.randn(d, generator=gen, device="cuda")
+        mixes = [torch.rand(d, generator=gen, device="cuda")
+                 for _ in range(K)]
+        args = (x, shift, scale, bias, mixes)
+        outs, new_shift = ops.norm_shift_mix(*args)
+        want, want_shift = norm_shift_mix_ref(*args)
+        torch.cuda.synchronize()
+        for k, (got, ref) in enumerate(zip(outs, want)):
+            worst = max(worst, check_close(
+                f"norm_shift_mix {label}: mix {k} of {K}, x {dt}", got, ref,
+                TOL[dt], TOL[dt]))
+        worst = max(worst, check_close(
+            f"norm_shift_mix {label}: new shift", new_shift, want_shift,
+            TOL[dt], TOL[dt]))
+        del outs, new_shift, want, want_shift
+        if i >= NSM_TIMED:
+            continue
+        meta = torch.empty((K, B, S, d), dtype=dtype, device="meta")
+        flops, nbytes = ops.cost(x, shift, scale, bias, mixes, 1e-6,
+                                 (meta, shift))
+        kernel_ms = time_ms(ops.norm_shift_mix, iters=20, args=[args])
+        eager_ms = time_ms(ops.norm_shift_mix, iters=20, args=[args],
+                           graph=False)
+        plain_ms = time_ms(norm_shift_mix_ref, iters=5, args=[args])
+        row = dict(shape=label, ms=kernel_ms, eager_ms=eager_ms,
+                   plain_ms=plain_ms, library_ms=None,
+                   rows=ops.rows_per_warp(B * S),
+                   **bound(flops, nbytes, PEAK_F32_FLOPS))
+        print(f"[kernels] norm_shift_mix {label}: kernel {kernel_ms:.4f} ms "
+              f"(issued eagerly {eager_ms:.4f} ms; runs of {row['rows']} "
+              f"rows a warp), plain {plain_ms:.4f} ms, library none (no "
+              f"PyTorch call fuses these steps); bytes {nbytes:.4e} B = "
+              f"{row['bytes_ms']:.4f} ms at the HBM rate; bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+              f"{row['bound_ms'] / kernel_ms:.3f} of it reached")
+        shapes.append(row)
+        del x, args
+    timing = {k: v for k, v in shapes[0].items() if k != "shape"}
+    return dict(name="norm_shift_mix", route="cuda",
+                source="src/repro_torch/kernels/norm_shift_mix/csrc/"
+                       "norm_shift_mix.cu",
+                replaces=None,
+                replaces_note="no TPU kernel: rwkv6's LayerNorm, token "
+                              "shift and mixes, which the reference runs "
+                              "as jnp operations (src/repro/models/"
+                              "rwkv.py:56-66, :101, :170; transformer.py:"
+                              "100, :112)",
+                max_abs_err=worst, **timing, shapes=shapes)
+
+
 def device_busy_us(events) -> tuple:
     """(union of device-kernel intervals, first start to last end), in us."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+    from repro_torch.core.timeline import _measure, _union
+    spans = _union((e.time_range.start, e.time_range.end) for e in events
                    if e.device_type.name == "CUDA")
-    busy, cur = 0.0, None
-    for a, b in spans:
-        if cur is None or a > cur[1]:
-            busy += 0 if cur is None else cur[1] - cur[0]
-            cur = [a, b]
-        else:
-            cur[1] = max(cur[1], b)
-    if cur is not None:
-        busy += cur[1] - cur[0]
-    return busy, (spans[-1][1] - spans[0][0]) if spans else 0.0
+    return _measure(spans), (spans[-1][1] - spans[0][0]) if spans else 0.0
 
 
 def flush_wall(eng, prompts) -> float:
@@ -1076,6 +1157,7 @@ def phase_rwkv(card: str, profile: bool = False) -> dict:
     import numpy as np
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels.norm_shift_mix.ref import norm_shift_mix_ref
     from repro_torch.kernels.rwkv6 import ops
     from repro_torch.models import init_lm
     from repro_torch.models import rwkv as R
@@ -1101,28 +1183,38 @@ def phase_rwkv(card: str, profile: bool = False) -> dict:
     # bf16 activations the two paths also round y to bf16 apart in a few
     # elements, which depth amplifies alike (0.8% after 2 layers, 15% after
     # 24): the bf16 tolerance is held at 2 layers and the rest printed.
+    # The norm-shift-mix kernel against the plain composition alike: in
+    # float32 the statistics' sums in another order, in bf16 also the mixes
+    # rounded once where the plain version rounds three times.
     depths = (2, 4, 8, 16, cfg.n_layers)
-    for dtype, rtol, held in ((torch.float32, 1e-3, depths),
-                              (torch.bfloat16, TOL["bfloat16"], depths[:1])):
-        got = logits_by_depth(cfg, model, toks, depths, dtype)
-        with mock.patch.object(R, "wkv6", ops.wkv6_plain):
-            want = logits_by_depth(cfg, model, toks, depths, dtype)
-        for n in depths:
-            check_logits("rwkv", f"WKV6 kernel vs plain recurrence, {n} "
-                         f"layers, {str(dtype)[6:]} activations", got[n],
-                         want[n], rtol if n in held else None)
-        del got, want
+    for name, plain, what in (("wkv6", ops.wkv6_plain,
+                               "WKV6 kernel vs plain recurrence"),
+                              ("norm_shift_mix", norm_shift_mix_ref,
+                               "norm_shift_mix kernel vs plain composition")):
+        for dtype, rtol, held in ((torch.float32, 1e-3, depths),
+                                  (torch.bfloat16, TOL["bfloat16"],
+                                   depths[:1])):
+            got = logits_by_depth(cfg, model, toks, depths, dtype)
+            with mock.patch.object(R, name, plain):
+                want = logits_by_depth(cfg, model, toks, depths, dtype)
+            for n in depths:
+                check_logits("rwkv", f"{what}, {n} layers, "
+                             f"{str(dtype)[6:]} activations", got[n],
+                             want[n], rtol if n in held else None)
+            del got, want
     torch.cuda.synchronize()
 
     launches = serve_and_check("rwkv", cfg, model, prompts, batch, new,
                                direct, card, profile)
     # One recurrence per layer in each batch's prefill and in each of its
-    # new - 1 decode steps (T = 1); the family has no attention and
-    # layernorm only.
+    # new - 1 decode steps (T = 1), and two norm-shift-mix launches (ln1's
+    # and ln2's sites); the family has no attention and layernorm only.
     n_batches = n_req // batch
     expect_launches(launches, {"wkv6": cfg.n_layers * n_batches * new,
                                "wkv6_t1": cfg.n_layers * n_batches
                                * (new - 1),
+                               "norm_shift_mix": 2 * cfg.n_layers
+                               * n_batches * new,
                                "flash_attention": 0, "rmsnorm": 0,
                                "wkv6_bwd": 0})
     return launches
@@ -2531,13 +2623,15 @@ def train_full_width(card: str, profile: bool) -> dict:
 def rwkv6_gradients(cfg, plain: bool, f32: bool) -> tuple:
     """One micro-batch's loss and per-leaf float32 gradients of ``cfg``
     (random weights from seed 0, remat), through the WKV6 kernels or, with
-    ``plain``, through autograd of the plain recurrence (``R.wkv6``
-    patched, as phase 4 patches it); with ``f32`` the embedding's output,
+    ``plain``, through autograd of the plain recurrence and the plain
+    norm, shift and mixes (``R.wkv6`` and ``R.norm_shift_mix`` patched, as
+    phase 4 patches them); with ``f32`` the embedding's output,
     and so every activation after it, stays float32 instead of bf16."""
     from unittest import mock
 
     import torch
     from repro_torch.data import SyntheticTokenStream
+    from repro_torch.kernels.norm_shift_mix.ref import norm_shift_mix_ref
     from repro_torch.kernels.rwkv6 import ops
     from repro_torch.models import init_lm
     from repro_torch.models import rwkv as R
@@ -2554,6 +2648,8 @@ def rwkv6_gradients(cfg, plain: bool, f32: bool) -> tuple:
     with contextlib.ExitStack() as stack:
         if plain:
             stack.enter_context(mock.patch.object(R, "wkv6", ops.wkv6_plain))
+            stack.enter_context(mock.patch.object(R, "norm_shift_mix",
+                                                  norm_shift_mix_ref))
         if f32:
             stack.enter_context(mock.patch.object(
                 T, "_embed", lambda *a, **k: embed(*a, **k).float()))
@@ -2633,12 +2729,16 @@ def train_rwkv6(card: str, profile: bool) -> dict:
                              f"of {first_want:.4f}")
     # WKV6 once a layer in each micro-batch's forward and again in remat's
     # recompute (both keep states: grad is on in both), its backward once
-    # a layer and micro-batch; layernorm only, no attention.
+    # a layer and micro-batch; layernorm only, no attention; norm_shift_mix
+    # at both sites of a layer, in the forward and again in remat's
+    # recompute (its backward is PyTorch ops, NormShiftMixFn).
     per_step = cfg.n_layers * RWKV_ACCUM
     expect_launches(launches, {"wkv6": 2 * per_step * RWKV_STEPS,
                                "wkv6_bwd": per_step * RWKV_STEPS,
                                "wkv6_t1": 0, "rmsnorm": 0,
-                               "flash_attention": 0})
+                               "flash_attention": 0,
+                               "norm_shift_mix": 2 * 2 * per_step
+                               * RWKV_STEPS})
 
     serial, sspans, _, _ = trainer_run(
         cfg, RWKV_SERIAL_STEPS, seq=RWKV_SEQ, batch=RWKV_BATCH,
@@ -3128,9 +3228,11 @@ def kernels_only_on_card():
     and backward too), and counts the wrappers' ``DTensor`` entries (their
     ``local_map`` calls)."""
     from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.norm_shift_mix import ops as nsm
     from repro_torch.kernels.rmsnorm import ops as rms
     from repro_torch.kernels.rwkv6 import ops as wkv
-    sharded = {"rmsnorm": 0, "flash_attention": 0, "wkv6": 0}
+    sharded = {"rmsnorm": 0, "flash_attention": 0, "wkv6": 0,
+               "norm_shift_mix": 0}
     saved = []
 
     def patch(mod, name, new):
@@ -3153,11 +3255,14 @@ def kernels_only_on_card():
     patch(wkv, "wkv6_plain", refuse("wkv6"))
     patch(wkv, "wkv6_plain_saving", refuse("wkv6"))
     patch(wkv, "wkv6_bwd_plain", refuse("wkv6_bwd"))
+    patch(nsm, "norm_shift_mix_ref", refuse("norm_shift_mix"))
     patch(rms, "_rmsnorm_sharded", counting("rmsnorm",
                                             rms._rmsnorm_sharded))
     patch(flash, "_flash_sharded", counting("flash_attention",
                                             flash._flash_sharded))
     patch(wkv, "_wkv6_sharded", counting("wkv6", wkv._wkv6_sharded))
+    patch(nsm, "_norm_shift_mix_sharded", counting(
+        "norm_shift_mix", nsm._norm_shift_mix_sharded))
     try:
         yield sharded
     finally:
@@ -3355,8 +3460,9 @@ def mesh_serve_cli(card: str, mesh) -> dict:
     from repro_torch.launch import serve
     cfg = get_config("rwkv6_1_6b")
     # batch 2, prompt 32, 16 new tokens: one prefill and 15 decode steps
-    # of WKV6 in each of the 24 layers
+    # of WKV6 and two of norm_shift_mix in each of the 24 layers
     want = {"wkv6": cfg.n_layers * 16, "wkv6_t1": cfg.n_layers * 15,
+            "norm_shift_mix": 2 * cfg.n_layers * 16,
             "flash_attention": 0, "rmsnorm": 0}
     buf = io.StringIO()
     reset_launches()
@@ -3390,9 +3496,10 @@ def mesh_serve_cli(card: str, mesh) -> dict:
           f"{json.dumps(placed)}, DTensor entries "
           f"{json.dumps(sharded_calls)} ({card})")
     expect_launches(placed, want)
-    if sharded_calls["wkv6"] != placed["wkv6"]:
-        raise AssertionError("WKV6 did not launch through local_map at "
-                             "every call")
+    for name in ("wkv6", "norm_shift_mix"):
+        if sharded_calls[name] != placed[name]:
+            raise AssertionError(f"{name} did not launch through local_map "
+                                 f"at every call")
     if lines[1] != f"sample: {np.asarray(out['tokens'][0][:12])}":
         raise AssertionError(f"the mesh's tokens {out['tokens'][0][:12]} "
                              f"differ from the launcher's {lines[1]}")
@@ -3500,16 +3607,21 @@ DRYRUN_CELLS = [("qwen3_32b", "train_4k", False),
 # Each cell's kernel calls a step: qwen3's RMSNorms (4 a layer and the
 # final norm forward, the layers' 4 again in remat's recompute; 64 layers,
 # 16 microbatches), none in nemotron's (LayerNorm, and training takes the
-# plain attention), rwkv6's one WKV6 a layer (24) in a decode step, and in
-# its train step (16 microbatches of 16 sequences) the WKV6 forward twice
-# a layer (the forward and remat's recompute) and its backward once: the
-# plain loops would count none.
+# plain attention), rwkv6's one WKV6 and two norm_shift_mix a layer (24)
+# in a decode step, and in its train step (16 microbatches of 16
+# sequences) the WKV6 forward twice a layer (the forward and remat's
+# recompute) and its backward once, norm_shift_mix twice at each of a
+# layer's two sites (its backward is PyTorch ops): the plain loops would
+# count none.
 DRYRUN_KERNELS = {("qwen3_32b", "train_4k"): {"rmsnorm": (2 * 4 * 64 + 1)
                                               * 16},
                   ("nemotron_4_340b", "train_4k"): {},
-                  ("rwkv6_1_6b", "long_500k"): {"wkv6": 24},
+                  ("rwkv6_1_6b", "long_500k"): {"wkv6": 24,
+                                                "norm_shift_mix": 48},
                   ("rwkv6_1_6b", "train_4k"): {"wkv6": 2 * 24 * 16,
-                                               "wkv6_bwd": 24 * 16}}
+                                               "wkv6_bwd": 24 * 16,
+                                               "norm_shift_mix":
+                                               2 * 2 * 24 * 16}}
 # 11b's predicted peak (the fake trace's MemTracker) over the card's
 # max_memory_allocated(), in the counted step and in the same step run
 # without the counter, is held inside these bands: 0.8146 and 1.0622 in
@@ -4377,13 +4489,15 @@ def example_serve(card: str, arch: str, layers: int) -> dict:
     # steps).  gemma3: RMSNorm for ln1, ln2, the q-norm and the k-norm of
     # every layer and the final norm in each call; the prefill without
     # flash, as the example calls it.  rwkv6: one WKV6 recurrence a layer in
-    # each call, new - 1 of them at T = 1; no RMSNorm (layernorm).
+    # each call, new - 1 of them at T = 1, and two norm_shift_mix a layer
+    # and call; no RMSNorm (layernorm).
     if cfg.family == "ssm":
         want = {"wkv6": layers * new * n_req,
-                "wkv6_t1": layers * (new - 1) * n_req, "rmsnorm": 0}
+                "wkv6_t1": layers * (new - 1) * n_req, "rmsnorm": 0,
+                "norm_shift_mix": 2 * layers * new * n_req}
     else:
         want = {"rmsnorm": ((2 + 2 * cfg.qk_norm) * layers + 1) * new * n_req,
-                "wkv6": 0}
+                "wkv6": 0, "norm_shift_mix": 0}
     want.update(flash_attention=0, wkv6_bwd=0)
     for _, launches in runs.values():
         expect_launches(launches, want)
@@ -4803,7 +4917,7 @@ def main() -> int:
     t0 = time.perf_counter()
     sass = phase_build()
     rows = [phase_flash(sass), phase_rmsnorm(), phase_wkv6(),
-            phase_wkv6_bwd()]
+            phase_wkv6_bwd(), phase_norm_shift_mix()]
     launches = phase_qwen3(card, profile)
     # The qwen3 engine's reference cycles hold its weights until collected.
     free_card("qwen3 serving")
@@ -4833,9 +4947,10 @@ def main() -> int:
     for row in rows:
         name = row["name"]
         # each kernel's main path: serving (qwen3's, rwkv6's for the WKV6
-        # forward), rwkv6's training for the WKV6 backward
-        main_path = {"wkv6": rwkv, "wkv6_bwd": train["rwkv6"]}.get(
-            name, launches)
+        # forward and norm_shift_mix), rwkv6's training for the WKV6
+        # backward
+        main_path = {"wkv6": rwkv, "norm_shift_mix": rwkv,
+                     "wkv6_bwd": train["rwkv6"]}.get(name, launches)
         row["launches"] = main_path[name]
         row["launches_moe"] = moe[name]
         row["launches_train"] = train["qwen3"][name]

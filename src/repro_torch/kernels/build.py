@@ -31,6 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES: Dict[str, Path] = {
     "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
     "rmsnorm": _PKG / "rmsnorm" / "csrc" / "rmsnorm.cu",
+    "norm_shift_mix": _PKG / "norm_shift_mix" / "csrc" / "norm_shift_mix.cu",
     "wkv6": _PKG / "rwkv6" / "csrc" / "wkv6.cu",
     "wkv6_bwd": _PKG / "rwkv6" / "csrc" / "wkv6_bwd.cu",
 }

@@ -189,11 +189,14 @@ def _nbytes(t: torch.Tensor) -> int:
 
 def _kernel_costs() -> dict:
     from ..kernels.flash_attention import ops as flash
+    from ..kernels.norm_shift_mix import ops as nsm
     from ..kernels.rmsnorm import ops as rms
     from ..kernels.rwkv6 import ops as wkv
     return {torch.ops.repro_torch.flash_attention_fwd.default:
             ("flash_attention", flash.cost),
             torch.ops.repro_torch.rmsnorm_fwd.default: ("rmsnorm", rms.cost),
+            torch.ops.repro_torch.norm_shift_mix.default: ("norm_shift_mix",
+                                                           nsm.cost),
             torch.ops.repro_torch.wkv6_fwd.default: ("wkv6", wkv.cost),
             torch.ops.repro_torch.wkv6_fwd_save.default: ("wkv6", wkv.cost),
             torch.ops.repro_torch.wkv6_bwd.default: ("wkv6_bwd",

@@ -7,6 +7,8 @@ to the activation dtype at every matmul (``x @ w.to(x.dtype)``), as
 RMSNorm (``Norm``'s rmsnorm branch and the qk-norm ``rms_norm_heads``) goes
 through ``kernels.rmsnorm.ops.rmsnorm``: the hand-written kernel on a CUDA
 tensor, its plain version (``ref.rmsnorm_ref``) on a CPU tensor.
+LayerNorm is ``kernels.norm_shift_mix.ref.layer_norm``, the arithmetic
+rwkv6's norm-shift-mix kernel matches.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from torch import nn
 from torch._subclasses.fake_tensor import FakeTensor
 
 from ..kernels import is_dtensor, kernel_placements
+from ..kernels.norm_shift_mix.ref import layer_norm
 from ..kernels.rmsnorm.ops import rmsnorm
 from ..sharding.context import use_weight
 
@@ -53,12 +56,7 @@ class Norm(nn.Module):
         if is_dtensor(x):     # the row statistics need whole rows
             x = x.redistribute(placements=kernel_placements(
                 x, tuple(range(x.ndim - 1))))
-        xf = x.float()
-        mu = xf.mean(-1, keepdim=True)
-        var = xf.var(-1, keepdim=True, unbiased=False)
-        y = (xf - mu) * torch.rsqrt(var + eps)
-        y = y * self.scale.float() + self.bias.float()
-        return y.to(x.dtype)
+        return layer_norm(x, self.scale, self.bias, eps)
 
 
 def rms_norm_heads(x, scale, eps: float = 1e-6):

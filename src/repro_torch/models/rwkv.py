@@ -17,6 +17,14 @@ carried over: under grad ``wkv6`` goes through ``WKV6Fn``, whose forward
 keeps the state every 16 steps and whose backward (the backward kernel
 on the card, the plain loop on the CPU) recomputes each chunk from it.
 
+Each layer's LayerNorm, token shift and static mixes are one call of
+``kernels.norm_shift_mix.ops.norm_shift_mix`` a site (``time_mix_inputs``,
+``channel_mix_inputs``): the hand-written kernel on the card (under
+autograd through ``NormShiftMixFn``, its backward PyTorch ops), the plain
+composition on the CPU.  So the mixers here take the
+mixed inputs and the new shift state, where the reference's take the
+normalised x and shift it themselves.
+
 A state is a dict ``{"shift", "wkv"}`` (the block adds ``"cmix_shift"``);
 ``apply_rwkv_seq`` and ``apply_rwkv_step`` replace its entries in place and
 return it, where the reference returns a new dict.
@@ -29,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.norm_shift_mix.ops import norm_shift_mix
 from ..kernels.rwkv6.ops import wkv6
 from ..sharding.context import merge_heads, split_heads, use_weight
 from .layers import _param, normal_init
@@ -84,21 +93,34 @@ def init_rwkv_state(cfg, batch: int, device) -> dict:
                                device=device)}
 
 
-def _mix(x, x_prev, m):
-    return x * m + x_prev * (1.0 - m)
+# The time mix's mix vectors, in the order of its inputs r, k, v, g, w.
+TIME_MIXES = ("mix_r", "mix_k", "mix_v", "mix_g", "mix_w")
 
 
-def _projections(p: TimeMix, x, x_prev, dtype):
-    def mix(m):
-        return _mix(x, x_prev, m.to(dtype))
+def time_mix_inputs(p: TimeMix, ln, x, shift):
+    """The time mix's five mixed inputs (xr, xk, xv, xg, xw), each (B, S,
+    d) in x's dtype, from the residual stream x (B, S, d), the LayerNorm
+    ``ln`` (a ``layers.Norm``) and the previous chunk's last normalised
+    row ``shift`` (B, d); and the new shift state (B, d) float32."""
+    return norm_shift_mix(x, shift, ln.scale, ln.bias,
+                          [getattr(p, name) for name in TIME_MIXES])
+
+
+def channel_mix_inputs(p: ChannelMix, ln, x, shift):
+    """The channel mix's two mixed inputs (xk, xr) and its new shift
+    state, as ``time_mix_inputs``."""
+    return norm_shift_mix(x, shift, ln.scale, ln.bias, [p.mix_k, p.mix_r])
+
+
+def _projections(p: TimeMix, xs, dtype):
+    xr, xk, xv, xg, xw = xs
     def col(w):
         return use_weight(w.to(dtype), (None, "model"))
-    r = mix(p.mix_r) @ col(p.wr)
-    k = mix(p.mix_k) @ col(p.wk)
-    v = mix(p.mix_v) @ col(p.wv)
-    g = mix(p.mix_g) @ col(p.wg)
-    dec = torch.tanh(mix(p.mix_w) @ p.w_decay_a.to(dtype)) \
-        @ p.w_decay_b.to(dtype)
+    r = xr @ col(p.wr)
+    k = xk @ col(p.wk)
+    v = xv @ col(p.wv)
+    g = xg @ col(p.wg)
+    dec = torch.tanh(xw @ p.w_decay_a.to(dtype)) @ p.w_decay_b.to(dtype)
     w = torch.exp(-torch.exp(p.decay_base.float() + dec.float()))
     return r, k, v, g, w
 
@@ -113,56 +135,57 @@ def _group_norm(x, scale, H: int):
     return (merge_heads(y) * scale.float()).to(x.dtype)
 
 
-def apply_rwkv_seq(cfg, p: TimeMix, x, state) -> Tuple[torch.Tensor, dict]:
-    """x: (B, S, d), sequence mode (prefill); the recurrence goes through
-    the WKV6 kernel with s0 = state["wkv"]."""
-    B, S, d = x.shape
+def apply_rwkv_seq(cfg, p: TimeMix, xs, shift,
+                   state) -> Tuple[torch.Tensor, dict]:
+    """xs: the five mixed inputs (B, S, d) of ``time_mix_inputs``, shift
+    its new shift state; sequence mode (prefill): the recurrence goes
+    through the WKV6 kernel with s0 = state["wkv"]."""
+    B, S, d = xs[0].shape
+    dtype = xs[0].dtype
     hd = cfg.ssm.head_dim
     H = d // hd
-    x_prev = torch.cat([state["shift"].to(x.dtype)[:, None, :],
-                        x[:, :-1, :]], dim=1)
-    r, k, v, g, w = _projections(p, x, x_prev, x.dtype)
+    r, k, v, g, w = _projections(p, xs, dtype)
     def heads(t):
         return split_heads(t, H, hd)
     y, s_final = wkv6(heads(r), heads(k), heads(v), heads(w),
                       p.bonus_u.float(), state["wkv"])
     y = _group_norm(y.reshape(B * S, d), p.ln_x_scale, H).reshape(B, S, d)
     y = y * F.silu(g)
-    out = y @ use_weight(p.wo.to(x.dtype), ("model", None))
-    state["shift"] = x[:, -1, :].float()
+    out = y @ use_weight(p.wo.to(dtype), ("model", None))
+    state["shift"] = shift
     state["wkv"] = s_final
     return out, state
 
 
-def apply_rwkv_step(cfg, p: TimeMix, x, state) -> Tuple[torch.Tensor, dict]:
-    """x: (B, 1, d), decode mode: one O(1) state update, the WKV6 kernel at
-    T = 1.  r, k, v go in as float32, so y comes out unrounded."""
-    B, _, d = x.shape
+def apply_rwkv_step(cfg, p: TimeMix, xs, shift,
+                    state) -> Tuple[torch.Tensor, dict]:
+    """xs: the five mixed inputs (B, 1, d) of ``time_mix_inputs``, shift
+    its new shift state; decode mode: one O(1) state update, the WKV6
+    kernel at T = 1.  r, k, v go in as float32, so y comes out
+    unrounded."""
+    B, _, d = xs[0].shape
+    dtype = xs[0].dtype
     hd = cfg.ssm.head_dim
     H = d // hd
-    xt = x[:, 0, :]
-    r, k, v, g, w = _projections(p, xt, state["shift"].to(x.dtype), x.dtype)
+    r, k, v, g, w = _projections(p, [t[:, 0, :] for t in xs], dtype)
     def head(t):
         return split_heads(t.float()[:, None], H, hd)
     y, S_new = wkv6(head(r), head(k), head(v), head(w), p.bonus_u.float(),
                     state["wkv"])
-    y = _group_norm(y.reshape(B, d), p.ln_x_scale, H).to(x.dtype)
+    y = _group_norm(y.reshape(B, d), p.ln_x_scale, H).to(dtype)
     y = y * F.silu(g)
-    out = (y @ use_weight(p.wo.to(x.dtype), ("model", None)))[:, None, :]
-    state["shift"] = xt.float()
+    out = (y @ use_weight(p.wo.to(dtype), ("model", None)))[:, None, :]
+    state["shift"] = shift
     state["wkv"] = S_new
     return out, state
 
 
-def apply_channel_mix(cfg, p: ChannelMix, x, shift_state):
-    """x: (B, S, d); shift_state: (B, d), the last token of the previous
-    chunk.  Returns (out, the last token of x)."""
-    x_prev = torch.cat([shift_state.to(x.dtype)[:, None, :], x[:, :-1, :]],
-                       dim=1)
-    xk = _mix(x, x_prev, p.mix_k.to(x.dtype))
-    xr = _mix(x, x_prev, p.mix_r.to(x.dtype))
+def apply_channel_mix(cfg, p: ChannelMix, xs):
+    """xs: the two mixed inputs (xk, xr), (B, S, d), of
+    ``channel_mix_inputs``.  Returns the channel mix's output."""
+    xk, xr = xs
+    dtype = xk.dtype
     k = torch.square(F.relu(
-        xk @ use_weight(p.wk.to(x.dtype), (None, "model"))))
-    r = torch.sigmoid(xr @ use_weight(p.wr.to(x.dtype), (None, None)))
-    return r * (k @ use_weight(p.wv.to(x.dtype), ("model", None))), \
-        x[:, -1, :]
+        xk @ use_weight(p.wk.to(dtype), (None, "model"))))
+    r = torch.sigmoid(xr @ use_weight(p.wr.to(dtype), (None, None)))
+    return r * (k @ use_weight(p.wv.to(dtype), ("model", None)))

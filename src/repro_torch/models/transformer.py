@@ -198,14 +198,16 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda",
 # block apply
 # ----------------------------------------------------------------------
 def _apply_rwkv_block(cfg, blk: Block, x, state, seq: bool):
-    h = blk.ln1(x)
+    """Each of ln1 and ln2 with its token shift and mixes is one
+    ``norm_shift_mix`` call (``R.time_mix_inputs``,
+    ``R.channel_mix_inputs``)."""
+    xs, shift = R.time_mix_inputs(blk.rwkv, blk.ln1, x, state["shift"])
     mixer = R.apply_rwkv_seq if seq else R.apply_rwkv_step
-    y, _ = mixer(cfg, blk.rwkv, h, state)
+    y, _ = mixer(cfg, blk.rwkv, xs, shift, state)
     x = x + y
-    y2, cshift = R.apply_channel_mix(cfg, blk.cmix, blk.ln2(x),
-                                     state["cmix_shift"])
-    state["cmix_shift"] = cshift.float()
-    return x + y2
+    xs, state["cmix_shift"] = R.channel_mix_inputs(blk.cmix, blk.ln2, x,
+                                                   state["cmix_shift"])
+    return x + R.apply_channel_mix(cfg, blk.cmix, xs)
 
 
 def _ffn_part(cfg, blk: Block, x, aux: Optional[dict]):

@@ -359,6 +359,65 @@ def test_wkv6_gradients_on_dtensors_equal_whole_tensor_gradients():
     assert not bad, bad
 
 
+def test_norm_shift_mix_on_dtensors_equals_whole_tensor_calls():
+    """rwkv6's LayerNorm, token shift and mixes (``norm_shift_mix``) on a
+    2-rank mesh with the batch, the sequence or d sharded (the last two
+    gathered first: the shift crosses sequence shards, the statistics need
+    whole rows) or nothing: the mixed inputs and the new shift, gathered,
+    equal the call on whole tensors bit for bit; under autograd (the plain
+    version, as training runs it) every input's gradient, gathered,
+    equals the whole call's to 1e-6 of its scale (the batch's parameter
+    gradients in two parts)."""
+    res = run_gloo("""
+        from torch.distributed.device_mesh import init_device_mesh
+        from torch.distributed.tensor import (Replicate, Shard,
+                                              distribute_tensor)
+        from repro_torch.kernels.norm_shift_mix.ops import norm_shift_mix
+        mesh = init_device_mesh("cpu", (WORLD,), mesh_dim_names=("model",))
+        g = torch.Generator().manual_seed(2)
+        B, S, d, K = 4, 6, 32, 5
+
+        def put(t, pl):
+            return distribute_tensor(t, mesh, [pl], src_data_rank=None)
+        x = torch.randn((B, S, d), generator=g)
+        shift = torch.randn((B, d), generator=g)
+        scale, bias = torch.randn(d, generator=g), torch.randn(d, generator=g)
+        mixes = [torch.rand(d, generator=g) for _ in range(K)]
+        gys = [torch.randn((B, S, d), generator=g) for _ in range(K)]
+        diffs = {}
+        outs, last = norm_shift_mix(x.bfloat16(), shift, scale, bias, mixes)
+        for pl, s_pl in ((Shard(0), Shard(0)), (Shard(1), Replicate()),
+                         (Shard(2), Shard(1)), (Replicate(), Replicate())):
+            got, got_last = norm_shift_mix(
+                put(x.bfloat16(), pl), put(shift, s_pl),
+                put(scale, Replicate()), put(bias, Replicate()),
+                [put(m, Replicate()) for m in mixes])
+            diffs[f"outs {pl}"] = max(
+                float((o.full_tensor().float() - w.float()).abs().max())
+                for o, w in zip(got, outs))
+            diffs[f"shift {pl}"] = float(
+                (got_last.full_tensor() - last).abs().max())
+        whole = [t.clone().requires_grad_(True)
+                 for t in (x, shift, scale, bias, *mixes)]
+        o, _ = norm_shift_mix(*whole[:4], whole[4:])
+        sum((a * gy).sum() for a, gy in zip(o, gys)).backward()
+        for pl, s_pl in ((Shard(0), Shard(0)), (Shard(1), Replicate())):
+            ins = [put(x, pl), put(shift, s_pl)] + [
+                put(t, Replicate()) for t in (scale, bias, *mixes)]
+            ins = [t.detach().requires_grad_(True) for t in ins]
+            o, _ = norm_shift_mix(*ins[:4], ins[4:])
+            sum((a * put(gy, pl)).sum() for a, gy in zip(o, gys)).backward()
+            for i, (got, want) in enumerate(zip(ins, whole)):
+                err = (got.grad.full_tensor() - want.grad).abs().max()
+                diffs[f"d{i} {pl}"] = float(err / want.grad.abs().max())
+        print(json.dumps(diffs))
+    """, world=2)
+    assert len(res) == 8 + 2 * 9, res
+    bad = {k: d for k, d in res.items()
+           if d > (1e-6 if k.startswith("d") else 0)}
+    assert not bad, bad
+
+
 
 @pytest.mark.parametrize("arch", ["qwen3_32b", "qwen2_moe_a2_7b"])
 def test_sequence_sharded_train_step_matches_the_plain_step(arch):

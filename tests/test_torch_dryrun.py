@@ -167,7 +167,8 @@ def _fake_cuda(*specs):
                       for s, d in specs]
 
 
-@pytest.mark.parametrize("kernel", ["rmsnorm", "flash_attention", "wkv6"])
+@pytest.mark.parametrize("kernel", ["rmsnorm", "flash_attention", "wkv6",
+                                    "norm_shift_mix"])
 def test_kernel_operator_fakes_and_counted_formula(kernel):
     """Each wrapper on fake CUDA tensors goes through its operator's fake:
     the kernel's output shapes and types (those of the plain version on
@@ -175,10 +176,25 @@ def test_kernel_operator_fakes_and_counted_formula(kernel):
     counter with the kernel's own formula, and no launch on the card's
     count."""
     from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.norm_shift_mix import ops as nsm
     from repro_torch.kernels.rmsnorm import ops as rms
     from repro_torch.kernels.rwkv6 import ops as wkv
     bf, f32 = torch.bfloat16, torch.float32
-    if kernel == "rmsnorm":
+    if kernel == "norm_shift_mix":
+        # the time mix's site: K = 5 mixes
+        B, S, d, K = 2, 7, 256, 5
+        mod, specs = nsm, [((B, S, d), bf), ((B, d), f32), ((d,), f32),
+                           ((d,), f32)] + [((d,), f32)] * K
+
+        def call(x, shift, scale, bias, *mixes):
+            outs, new_shift = nsm.norm_shift_mix(x, shift, scale, bias,
+                                                 mixes)
+            return (*outs, new_shift)
+        io = B * S * d
+        want = (7 * io + 2 * K * io,
+                io * 2 + B * d * 4 + 2 * d * 4 + K * d * 4 + K * io * 2
+                + B * d * 4)
+    elif kernel == "rmsnorm":
         mod, specs = rms, [((2, 7, 256), bf), ((256,), f32)]
         call = rms.rmsnorm
         N, d = 14, 256

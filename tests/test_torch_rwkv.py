@@ -26,6 +26,10 @@ from repro.models import (forward_decode as jdecode,
 from repro.models import rwkv as JR
 from repro.models import transformer as JT
 from repro_torch.configs import get_config
+from repro_torch.kernels.norm_shift_mix import ops as nsm
+from repro_torch.kernels.norm_shift_mix.ref import (layer_norm,
+                                                    norm_shift_mix_ref,
+                                                    shift_mix)
 from repro_torch.kernels.rwkv6 import ops
 from repro_torch.kernels.rwkv6.ref import wkv6_ref
 from repro_torch.models import (forward_decode, forward_prefill,
@@ -198,6 +202,14 @@ def _state_pair(cfg, B, seed=1):
             {"shift": torch.from_numpy(shift), "wkv": torch.from_numpy(wkv)})
 
 
+def _time_mix_inputs(tm, x, state):
+    """The port's time mix takes its mixed inputs and new shift state; the
+    reference's shifts and mixes x itself (its block normalises x first,
+    as the port's ``norm_shift_mix`` does)."""
+    return shift_mix(x, state["shift"], [getattr(tm, n)
+                                         for n in TR.TIME_MIXES])
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_apply_rwkv_seq_and_step_match_jax(dtype):
     jcfg, jp, cfg, tm = _time_mix_pair()
@@ -210,7 +222,8 @@ def test_apply_rwkv_seq_and_step_match_jax(dtype):
     # float32: f32 matmuls in two frameworks over d = 64; bf16: BF16_TOL.
     tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" else BF16_TOL
     jy, jst = JR.apply_rwkv_seq(jcfg, jp, jx[:, :S], jst)
-    ty, tst = TR.apply_rwkv_seq(cfg, tm, tx[:, :S], tst)
+    ty, tst = TR.apply_rwkv_seq(cfg, tm, *_time_mix_inputs(tm, tx[:, :S],
+                                                           tst), tst)
     assert ty.dtype == tx.dtype and ty.shape == (B, S, cfg.d_model)
     np.testing.assert_allclose(ty.float().numpy(), np.asarray(jy, np.float32),
                                **tol)
@@ -219,7 +232,8 @@ def test_apply_rwkv_seq_and_step_match_jax(dtype):
         np.testing.assert_allclose(tst[name].numpy(), np.asarray(jst[name]),
                                    **tol)
     jy, jst = JR.apply_rwkv_step(jcfg, jp, jx[:, S:], jst)
-    ty, tst = TR.apply_rwkv_step(cfg, tm, tx[:, S:], tst)
+    ty, tst = TR.apply_rwkv_step(cfg, tm, *_time_mix_inputs(tm, tx[:, S:],
+                                                            tst), tst)
     assert ty.shape == (B, 1, cfg.d_model)
     np.testing.assert_allclose(ty.float().numpy(), np.asarray(jy, np.float32),
                                **tol)
@@ -244,7 +258,8 @@ def test_apply_rwkv_step_hands_float32_to_wkv6(monkeypatch):
         return ops.wkv6(r, k, v, w, u, s0)
     monkeypatch.setattr(TR, "wkv6", spy)
     jy, jst = JR.apply_rwkv_step(jcfg, jp, jnp.asarray(x, jnp.bfloat16), jst)
-    ty, tst = TR.apply_rwkv_step(cfg, tm, torch.from_numpy(x).bfloat16(), tst)
+    ty, tst = TR.apply_rwkv_step(cfg, tm, *_time_mix_inputs(
+        tm, torch.from_numpy(x).bfloat16(), tst), tst)
     hd = cfg.ssm.head_dim
     assert seen == [(torch.float32,) * 4
                     + ((B, 1, cfg.d_model // hd, hd),)]
@@ -268,11 +283,230 @@ def test_apply_channel_mix_matches_jax():
     shift = rng.standard_normal((2, cfg.d_model)).astype(np.float32)
     jy, jlast = JR.apply_channel_mix(jcfg, jp, jnp.asarray(x),
                                      jnp.asarray(shift))
-    ty, tlast = TR.apply_channel_mix(cfg, cm, torch.from_numpy(x),
-                                     torch.from_numpy(shift))
+    xs, tlast = shift_mix(torch.from_numpy(x), torch.from_numpy(shift),
+                          [cm.mix_k, cm.mix_r])
+    ty = TR.apply_channel_mix(cfg, cm, xs)
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-4,
                                atol=1e-5)
     np.testing.assert_array_equal(tlast.numpy(), np.asarray(jlast))
+
+
+# ------------------------------------------------ norm, shift and mixes
+def _eager_block_inputs(ln, x, shift, mixes, decode: bool):
+    """A site's LayerNorm, token shift and mixes as the blocks composed them
+    before ``norm_shift_mix``: ``ln(x)``, a ``torch.cat`` token shift (in
+    decode, the state cast to x's dtype) and ``_mix(x, x_prev, m)`` =
+    ``x * m + x_prev * (1 - m)`` with m cast to x's dtype; the new shift
+    state the normalised last row in float32."""
+    h = ln(x)
+    if decode:
+        h, h_prev = h[:, 0, :], shift.to(x.dtype)
+    else:
+        h_prev = torch.cat([shift.to(x.dtype)[:, None, :], h[:, :-1, :]],
+                           dim=1)
+    outs = []
+    for m in mixes:
+        m = m.to(x.dtype)
+        outs.append(h * m + h_prev * (1.0 - m))
+    last = h if decode else h[:, -1, :]
+    return outs, last.float()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S", [7, 1])
+@pytest.mark.parametrize("site", ["time mix", "channel mix"])
+def test_norm_shift_mix_plain_version_is_the_eager_composition(site, S,
+                                                               dtype):
+    """``ref.norm_shift_mix_ref``, and the public wrapper on CPU tensors,
+    equal the blocks' former ``ln(x)``, ``torch.cat`` and ``_mix`` bit for
+    bit, at K = 5 (the time mix) and K = 2 (the channel mix), in prefill
+    and in decode (S = 1), with a nonzero shift and perturbed LayerNorm
+    parameters and mixes; the CPU path counts no launch."""
+    from repro_torch.models.layers import Norm
+    cfg = get_config(ARCH, reduced=True)
+    d, B = cfg.d_model, 3
+    g = torch.Generator().manual_seed(S)
+    ln = Norm(cfg, d, "cpu")
+    ln.scale.data += torch.randn(d, generator=g) * 0.1
+    ln.bias.data += torch.randn(d, generator=g) * 0.1
+    K = 5 if site == "time mix" else 2
+    mixes = [torch.rand(d, generator=g) for _ in range(K)]
+    x = (torch.randn((B, S, d), generator=g) * 2 + 0.5).to(dtype)
+    shift = torch.randn((B, d), generator=g)
+    want, want_last = _eager_block_inputs(ln, x, shift, mixes, S == 1)
+    before = nsm.launches
+    for fn in (norm_shift_mix_ref, nsm.norm_shift_mix):
+        outs, last = fn(x, shift, ln.scale, ln.bias, mixes)
+        assert len(outs) == K
+        for got, ref in zip(outs, want):
+            assert got.dtype == dtype and got.shape == (B, S, d)
+            assert torch.equal(got.reshape(ref.shape), ref)
+        assert last.dtype == torch.float32
+        assert torch.equal(last, want_last)
+    assert torch.equal(layer_norm(x, ln.scale, ln.bias), ln(x))
+    assert nsm.launches == before
+
+
+def test_norm_shift_mix_chunks_compose():
+    """A prompt in two chunks, the first chunk's new shift handed to the
+    second, gives the mixed inputs of the whole prompt, bit for bit."""
+    cfg = get_config(ARCH, reduced=True)
+    d = cfg.d_model
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((2, 12, d), generator=g).bfloat16()
+    scale, bias = torch.randn(d, generator=g), torch.randn(d, generator=g)
+    mixes = [torch.rand(d, generator=g) for _ in range(5)]
+    shift = torch.randn((2, d), generator=g)
+    whole, last = nsm.norm_shift_mix(x, shift, scale, bias, mixes)
+    a, mid = nsm.norm_shift_mix(x[:, :5], shift, scale, bias, mixes)
+    b, end = nsm.norm_shift_mix(x[:, 5:], mid, scale, bias, mixes)
+    for w, u, v in zip(whole, a, b):
+        assert torch.equal(torch.cat([u, v], 1), w)
+    assert torch.equal(end, last)
+
+
+@pytest.mark.parametrize("with_shift_grad", [True, False])
+@pytest.mark.parametrize("S", [7, 1])
+@pytest.mark.parametrize("K", [5, 2])
+def test_norm_shift_mix_backward_is_autograd_of_the_plain_version(
+        K, S, with_shift_grad):
+    """``ops.norm_shift_mix_backward``, the card's closed-form backward
+    (``NormShiftMixFn``), equals autograd through the plain version in
+    float32, for x, the shift, the LayerNorm's parameters and each mix, in
+    prefill and decode, with and without a gradient of the new shift."""
+    cfg = get_config(ARCH, reduced=True)
+    d, B = cfg.d_model, 3
+    g = torch.Generator().manual_seed(10 * K + S)
+    x = torch.randn((B, S, d), generator=g) * 2 + 0.5
+    shift = torch.randn((B, d), generator=g)
+    scale = 1 + 0.1 * torch.randn(d, generator=g)
+    bias = 0.1 * torch.randn(d, generator=g)
+    mixes = [torch.rand(d, generator=g) for _ in range(K)]
+    leaves = [t.clone().requires_grad_() for t in (x, shift, scale, bias,
+                                                   *mixes)]
+    g_outs = torch.randn((K, B, S, d), generator=g)
+    g_shift = torch.randn((B, d), generator=g) if with_shift_grad else None
+    outs, new_shift = norm_shift_mix_ref(*leaves[:4], leaves[4:])
+    want = torch.autograd.grad(
+        (*outs, new_shift), leaves,
+        (*g_outs, g_shift if with_shift_grad else torch.zeros_like(shift)))
+    dx, dshift, dscale, dbias, dmixes = nsm.norm_shift_mix_backward(
+        x, shift, scale, bias, mixes, 1e-6, g_outs, g_shift)
+    for got, ref in zip((dx, dshift, dscale, dbias, *dmixes), want):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("used", ["both", "mixes", "shift"])
+def test_norm_shift_mix_fn_wires_its_backward(used):
+    """``NormShiftMixFn`` with the kernel's launch replaced by the plain
+    version (the CPU has no kernel): through ``torch.autograd.grad`` each
+    leaf gets autograd's gradient of the plain version, whichever of the
+    mixed inputs and the new shift the loss reads (a gradient autograd
+    does not give is taken as 0)."""
+    cfg = get_config(ARCH, reduced=True)
+    d, B, S, K = cfg.d_model, 2, 5, 5
+    g = torch.Generator().manual_seed(11)
+    ins = [torch.randn((B, S, d), generator=g), torch.randn((B, d),
+                                                            generator=g),
+           1 + 0.1 * torch.randn(d, generator=g),
+           0.1 * torch.randn(d, generator=g)] + [
+        torch.rand(d, generator=g) for _ in range(K)]
+    w = torch.randn((K, B, S, d), generator=g)
+    ws = torch.randn((B, d), generator=g)
+
+    def loss(outs, new_shift):
+        total = torch.zeros(())
+        if used != "shift":
+            total = total + (torch.stack(list(outs)) * w).sum()
+        if used != "mixes":
+            total = total + (new_shift * ws).sum()
+        return total
+
+    def plain_stacked(x, shift, scale, bias, mixes, eps):
+        outs, new_shift = norm_shift_mix_ref(x, shift, scale, bias, mixes,
+                                             eps)
+        return torch.stack(outs), new_shift
+    grads = []
+    for fn in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_() for t in ins]
+        if fn == "kernel":
+            with mock.patch.object(nsm, "_stacked_cuda", plain_stacked):
+                outs, new_shift = nsm.NormShiftMixFn.apply(
+                    *leaves[:4], 1e-6, *leaves[4:])
+            outs = outs.unbind(0)
+        else:
+            outs, new_shift = norm_shift_mix_ref(*leaves[:4], leaves[4:])
+        got = torch.autograd.grad(loss(outs, new_shift), leaves,
+                                  allow_unused=True)
+        grads.append([torch.zeros_like(t) if d is None else d
+                      for d, t in zip(got, leaves)])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _launching_ops(fn) -> dict:
+    """The operations ``fn()`` dispatches that may launch work: views and
+    the fake tensor's device queries left out."""
+    from collections import Counter
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not func.is_view and func.namespace != "prim":
+                self.ops[str(func)] += 1
+            return out
+    with Count() as c:
+        fn()
+    return c.ops
+
+
+def test_rwkv6_block_issues_59_fewer_operations_on_the_card():
+    """One prefill block at the reduced width, WKV6 stubbed out: on fake
+    CUDA tensors (the card's path, as the dry run traces it) its two
+    LayerNorms, token shifts and seven mixes are two ``norm_shift_mix``
+    launches where the CPU path issues the eager composition's 61
+    operations, so the block issues 59 fewer; ``launch.hlostats`` counts
+    the kernel twice a layer by its ``cost`` over the stack of blocks."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import hlostats
+    from repro_torch.models import LM
+    from repro_torch.models import transformer as T
+
+    def stub(r, k, v, w, u, s0):
+        B, S, H, hd = r.shape
+        return r.new_zeros((B, S, H * hd)), s0
+    cfg = get_config(ARCH, reduced=True)
+    B, S = 2, 8
+    ops_by_device = {}
+    for dev in ("cpu", "cuda"):
+        mode = FakeTensorMode() if dev == "cuda" else torch.no_grad()
+        with mode:
+            model = LM(cfg, torch.device(dev), None)
+            x = torch.randn((B, S, cfg.d_model), device=dev).bfloat16()
+            cache = init_cache(cfg, B, S, dev)
+            with mock.patch.object(TR, "wkv6", stub):
+                ops_by_device[dev] = _launching_ops(
+                    lambda: T._apply_rwkv_block(cfg, model.blocks[0], x,
+                                                cache[0], seq=True))
+            if dev == "cuda":
+                def stack(x=x):
+                    for blk, state in zip(model.blocks, cache):
+                        x = T._apply_rwkv_block(cfg, blk, x, state, True)
+                stats = hlostats.count_step(stack)
+    cpu, card = ops_by_device["cpu"], ops_by_device["cuda"]
+    assert card["repro_torch.norm_shift_mix.default"] == 2
+    assert sum(cpu.values()) - sum(card.values()) == 59
+    assert dict(stats.kernel_launches) == {"norm_shift_mix":
+                                           2 * cfg.n_layers,
+                                           "wkv6": cfg.n_layers}
 
 
 # ------------------------------------------------------------- the model

@@ -24,6 +24,7 @@ from repro.configs import get_config as jget_config
 from repro.kernels.rwkv6.ref import wkv6_ref as jwkv6_ref
 from repro.models import rwkv as JR
 from repro_torch.configs import get_config
+from repro_torch.kernels.norm_shift_mix.ref import shift_mix
 from repro_torch.kernels.rwkv6 import ops
 from repro_torch.kernels.rwkv6.ref import (CHUNK, n_chunks, wkv6_bwd_ref,
                                            wkv6_ref, wkv6_ref_saving)
@@ -220,8 +221,11 @@ def test_apply_rwkv_seq_gradients_match_jax_vjp():
     tx = torch.from_numpy(x).requires_grad_(True)
     tshift = torch.from_numpy(shift).requires_grad_(True)
     twkv = torch.from_numpy(wkv).requires_grad_(True)
-    out, new = TR.apply_rwkv_seq(cfg, tm, tx, {"shift": tshift,
-                                               "wkv": twkv})
+    # The reference's time mix shifts and mixes x itself; the port's takes
+    # the mixed inputs (its block makes them with the LayerNorm).
+    xs, last = shift_mix(tx, tshift, [getattr(tm, n) for n in TR.TIME_MIXES])
+    out, new = TR.apply_rwkv_seq(cfg, tm, xs, last, {"shift": tshift,
+                                                     "wkv": twkv})
     assert "WKV6Fn" in type(new["wkv"].grad_fn).__name__
     ((out * torch.from_numpy(dout)).sum()
      + (new["wkv"] * torch.from_numpy(dwkv)).sum()).backward()
